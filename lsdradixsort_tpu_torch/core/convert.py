@@ -1,0 +1,75 @@
+"""Moving columns between numpy and the port's tensors, bit for bit.
+
+The system has no weights: the state it carries is the data. The JAX
+package consumes numpy u32/i32/f32 arrays; `from_numpy` turns the same
+arrays into tensors of the same dtype and bits on a chosen device, and
+`to_numpy` brings a tensor back, so both packages can be fed one input
+and their outputs compared with numpy.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_NP_TO_TORCH = {
+    np.dtype(np.uint32): torch.uint32,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.float32): torch.float32,
+}
+_TORCH_TO_NP = {v: k for k, v in _NP_TO_TORCH.items()}
+_SIGN = 1 << 31
+
+
+def from_numpy(a, device="cpu") -> torch.Tensor:
+    """A 32-bit numpy array (u32/i32/f32) as a contiguous tensor of the
+    same dtype and bits on `device`."""
+    a = np.ascontiguousarray(a)
+    if a.dtype not in _NP_TO_TORCH:
+        raise TypeError(f"32-bit columns are u32/i32/f32, got {a.dtype}")
+    # carry the bits as int32 (every device copies int32), then reinterpret
+    bits = torch.from_numpy(a.view(np.int32).copy()).to(device)
+    return bits.view(_NP_TO_TORCH[a.dtype])
+
+
+def u32_to_i64(t: torch.Tensor) -> torch.Tensor:
+    """uint32 values as int64 in [0, 2^32), where every device has
+    compares and arithmetic."""
+    return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def i64_to_u32(t: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) back to uint32 (inverse of u32_to_i64)."""
+    return (t - ((t >> 31) << 32)).to(torch.int32).view(torch.uint32)
+
+
+def order_key(words, flip1: bool = False) -> torch.Tensor:
+    """int64 whose ascending order is the lexicographic unsigned order of
+    one or two u32 words (word 1 compared signed when flip1)."""
+    key = u32_to_i64(words[0])
+    if len(words) == 1:
+        return key
+    val = u32_to_i64(words[1])
+    if flip1:
+        val = val ^ _SIGN
+    return (key - _SIGN) * (1 << 32) + val
+
+
+def take_rows(s: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """Gather u32 stream `s`, viewed as perm's (rows, width), by perm."""
+    rows, width = perm.shape
+    return (s.view(torch.int32).view(rows, width).gather(1, perm)
+            .reshape(-1).view(torch.uint32))
+
+
+def iota_u32(n: int, device) -> torch.Tensor:
+    """0, 1, ..., n-1 as uint32 (n < 2^31)."""
+    return torch.arange(n, dtype=torch.int32, device=device).view(
+        torch.uint32)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A 32-bit tensor (u32/i32/f32) as a numpy array of the same bits."""
+    np_dt = _TORCH_TO_NP.get(t.dtype)
+    if np_dt is None:
+        raise TypeError(f"32-bit columns are u32/i32/f32, got {t.dtype}")
+    return t.detach().view(torch.int32).cpu().numpy().view(np_dt)

@@ -1,0 +1,44 @@
+"""Deterministic data generation on a `torch.Generator`.
+
+Counterpart of lsdradixsort_tpu/core/datagen.py: every input is
+reproducible from an integer seed and is generated on the chosen device.
+The bits differ from `jax.random`'s, so tests that compare the two
+packages make their inputs with numpy and pass them through
+`core.convert.from_numpy` instead.
+"""
+from __future__ import annotations
+
+import torch
+
+from lsdradixsort_tpu_torch.core.convert import i64_to_u32, iota_u32
+
+
+def _generator(seed: int, device) -> torch.Generator:
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+def random_keys(n: int, seed: int = 0, device="cpu",
+                dtype=torch.uint32) -> torch.Tensor:
+    """Uniform random 32-bit keys over the full range of the bits
+    (uint32, int32 or float32 bit patterns), generated on `device`."""
+    bits = torch.randint(-(1 << 31), 1 << 31, (n,), dtype=torch.int32,
+                         device=device, generator=_generator(seed, device))
+    return bits.view(dtype)
+
+
+def random_kv(n: int, seed: int = 0, device="cpu"):
+    """(keys, values): uniform u32 keys and distinct row ids as values, so
+    stability is checkable bit for bit."""
+    return random_keys(n, seed, device), iota_u32(n, device)
+
+
+def random_keys_bounded(n: int, lo: int, hi: int, seed: int = 0,
+                        device="cpu") -> torch.Tensor:
+    """Uniform u32 keys in [lo, hi), 0 <= lo < hi <= 2^32."""
+    if not 0 <= lo < hi <= 1 << 32:
+        raise ValueError(f"need 0 <= lo < hi <= 2^32, got [{lo}, {hi})")
+    vals = torch.randint(lo, hi, (n,), dtype=torch.int64, device=device,
+                         generator=_generator(seed, device))
+    return i64_to_u32(vals)

@@ -1,0 +1,222 @@
+"""Sort operators — the port of lsdradixsort_tpu/ops/sort.py's flagship
+family.
+
+The framework sort ("merge", the default) is a per-tile sort
+(kernels/tile_sort.py) into sorted runs of 2^tile_log2 rows followed by
+8-way merge passes (kernels/merge.py), each a hand-written CUDA kernel
+on a CUDA tensor and its plain PyTorch version on a CPU tensor. Inputs
+are padded with 0xFFFFFFFF sentinels to a power-of-two tile count, so
+every pass sees whole groups.
+
+  * `merge_sort_keys`: keys only (the reference's workload).
+  * `merge_sort_with_ranks`: stable sort returning original positions.
+  * `merge_sort_multi`: (key, payload 0) order with more payloads riding.
+  * `sort`, `sort_kv`, `sort_with_ranks`, `argsort`: u32/i32/f32 keys,
+    ascending or descending, through the order-preserving codecs of
+    core/keycodec.py.
+
+Strategy "xla" — `jax.lax.sort` in the JAX package — is a stable
+`torch.sort` of the codes here, as are the other places where the JAX
+package sorts with `lax.sort` by design (the sentinel-collision path of
+`merge_sort_multi`, non-32-bit payloads in `sort_kv`, `sort_with_ranks`).
+Strategy "composed" needs the histogram and scan kernels, which are
+ROADMAP Queue A item 7.
+
+The JAX engine's TPU tuning knobs (max_buf, blk, ce, pipeline) are
+accepted for API parity and change nothing. The port's merge has no
+buffer capacity, so there is no skew fallback: `skew_fallback=False`
+keeps the (x, ok) return of `merge_sort_keys`, with ok always True.
+"""
+from __future__ import annotations
+
+import torch
+
+from lsdradixsort_tpu_torch.core import keycodec
+from lsdradixsort_tpu_torch.core.convert import i64_to_u32, iota_u32, \
+    order_key, u32_to_i64
+from lsdradixsort_tpu_torch.kernels.merge import (KWAY, merge_pass,
+                                                  merge_pass_kv,
+                                                  merge_pass_multi)
+from lsdradixsort_tpu_torch.kernels.tile_sort import (LANES, sort_tiles,
+                                                      sort_tiles_kv,
+                                                      sort_tiles_multi)
+
+_STRATEGIES = ("merge", "xla", "composed")
+
+
+def _composed_unported():
+    return NotImplementedError(
+        "strategy='composed' needs the histogram and scan kernels, which "
+        "are not ported yet (ROADMAP Queue A item 7)")
+
+
+def _padded_size(n: int, tile: int) -> int:
+    """Power-of-2 tile count: every pass's run length (tile * 8^k) must
+    divide the padded size."""
+    return tile * (1 << max(0, (-(-n // tile) - 1).bit_length()))
+
+
+def _pad(x: torch.Tensor, npad: int) -> torch.Tensor:
+    """x followed by 0xFFFFFFFF sentinels up to npad rows."""
+    if npad == x.shape[0]:
+        return x
+    fill = torch.full((npad - x.shape[0],), -1, dtype=torch.int32,
+                      device=x.device)
+    return torch.cat([x.view(torch.int32), fill]).view(torch.uint32)
+
+
+def _gather(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """x[perm] for a 32-bit tensor, carried as int32 bits."""
+    if x.element_size() == 4:
+        return x.view(torch.int32)[perm].view(x.dtype)
+    return x[perm]
+
+
+def _stable_order(codes) -> torch.Tensor:
+    """Stable ascending order of u32 code rows compared on one or two
+    words (int64 positions)."""
+    return torch.sort(order_key(codes), stable=True).indices
+
+
+def merge_sort_keys(keys: torch.Tensor, tile_log2: int = 15,
+                    max_buf: int | None = None, blk: int | None = None,
+                    skew_fallback: bool = True, ce: str = "reshape",
+                    pipeline="full"):
+    """The framework sort of (n,) uint32 keys: tile sort + 8-way merge
+    passes. Any n >= 1. Returns the sorted keys, or (sorted, True) with
+    skew_fallback=False (see the module docstring)."""
+    n = keys.shape[0]
+    tile = 1 << tile_log2
+    npad = _padded_size(n, tile)
+    x = sort_tiles(_pad(keys, npad), tile_rows=tile // LANES)
+    run = tile
+    while run < npad:
+        x = merge_pass(x, run)
+        run *= KWAY
+    x = x[:n]
+    return x if skew_fallback else (x, True)
+
+
+def merge_sort_with_ranks(keys: torch.Tensor, tile_log2: int = 15,
+                          max_buf: int | None = None, blk: int | None = None,
+                          ce: str = "reshape", pipeline="full"):
+    """Framework stable kv sort: returns (sorted_keys, original_positions).
+
+    The row index rides through the tile sort and every merge pass and
+    breaks every tie, which makes the whole pipeline stable."""
+    n = keys.shape[0]
+    tile = 1 << tile_log2
+    npad = _padded_size(n, tile)
+    # pad rows carry positions >= n: among equal sentinel keys the real
+    # rows sort first, so [:n] keeps exactly the real rows
+    x, v = sort_tiles_kv(_pad(keys, npad), iota_u32(npad, keys.device),
+                         tile_rows=tile // LANES)
+    run = tile
+    while run < npad:
+        x, v = merge_pass_kv(x, v, run)
+        run *= KWAY
+    return x[:n], v[:n]
+
+
+def merge_sort_multi(keys: torch.Tensor, values, tile_log2: int = 15,
+                     max_buf: int | None = None, blk: int | None = None,
+                     ce: str = "reshape", pipeline="full"):
+    """Framework sort of (keys, values[0]) lexicographic with any number of
+    payload streams riding. values: list of (n,) uint32; returns
+    (sorted_keys, [payloads...]).
+
+    Padding rows are (key, val0) = (0xFFFFFFFF, 0xFFFFFFFF), which sort
+    last. With >= 2 payloads a real row equal to that pair could trade its
+    riding payloads with padding, so that case takes an exact stable sort
+    by (key, val0, position) instead, as in the JAX package."""
+    values = list(values)
+    npad = _padded_size(keys.shape[0], 1 << tile_log2)
+    if npad != keys.shape[0] and len(values) >= 2:
+        collide = ((keys.view(torch.int32) == -1)
+                   & (values[0].view(torch.int32) == -1)).any()
+        if bool(collide):
+            perm = _stable_order([keys, values[0]])
+            return _gather(keys, perm), [_gather(v, perm) for v in values]
+    return _merge_sort_multi(keys, values, tile_log2)
+
+
+def _merge_sort_multi(keys: torch.Tensor, values, tile_log2: int):
+    """merge_sort_multi without the sentinel-collision check: for callers
+    whose values[0] can never be 0xFFFFFFFF."""
+    n = keys.shape[0]
+    tile = 1 << tile_log2
+    npad = _padded_size(n, tile)
+    x, vs = sort_tiles_multi(_pad(keys, npad), [_pad(v, npad) for v in values],
+                             tile_rows=tile // LANES)
+    run = tile
+    while run < npad:
+        x, vs = merge_pass_multi(x, vs, run)
+        run *= KWAY
+    return x[:n], [v[:n] for v in vs]
+
+
+def sort(keys: torch.Tensor, strategy: str = "merge", r: int = 8,
+         block_size: int = 1 << 13, descending: bool = False
+         ) -> torch.Tensor:
+    """Sort u32/i32/f32 keys (TestGPULSDRadixSort path, cu:912-1030).
+    Float keys sort in IEEE total order (core/keycodec.py)."""
+    code = keycodec.encode(keys, descending)
+    if strategy == "merge":
+        out = merge_sort_keys(code)
+    elif strategy == "xla":
+        out = i64_to_u32(torch.sort(u32_to_i64(code)).values)
+    elif strategy == "composed":
+        raise _composed_unported()
+    else:
+        raise ValueError(
+            f"unknown strategy {strategy!r}; pick from {_STRATEGIES}")
+    return keycodec.decode(out, keys.dtype, descending)
+
+
+def sort_kv(keys: torch.Tensor, values, strategy: str = "merge", r: int = 8,
+            block_size: int = 1 << 13, tile_log2: int = 15,
+            descending: bool = False):
+    """Stable key-value sort. keys: u32/i32/f32; values: one tensor or a
+    list/tuple of tensors of any dtype, returned in the same structure.
+
+    "merge" runs the framework engine: the row index is the compared
+    tiebreak and every 32-bit payload rides as its uint32 bits (a view,
+    never a conversion); payloads of other widths take "xla", a stable
+    torch.sort of the codes."""
+    code = keycodec.encode(keys, descending)
+    single = isinstance(values, torch.Tensor)
+    flat = [values] if single else list(values)
+    if strategy == "merge" and any(v.element_size() != 4 for v in flat):
+        strategy = "xla"
+    if strategy == "merge":
+        n = keys.shape[0]
+        u32 = [v.contiguous().view(torch.uint32) for v in flat]
+        # values[0] is the row index (< 2^31), never the 0xFFFFFFFF of a
+        # pad row, so the collision check and its host sync are skipped
+        sk, outs = _merge_sort_multi(code, [iota_u32(n, keys.device), *u32],
+                                     tile_log2)
+        back = [o.view(v.dtype) for o, v in zip(outs[1:], flat)]
+    elif strategy == "xla":
+        perm = _stable_order([code])
+        sk, back = _gather(code, perm), [_gather(v, perm) for v in flat]
+    elif strategy == "composed":
+        raise _composed_unported()
+    else:
+        raise ValueError(
+            f"unknown strategy {strategy!r}; pick from {_STRATEGIES}")
+    sv = back[0] if single else type(values)(back)
+    return keycodec.decode(sk, keys.dtype, descending), sv
+
+
+def sort_with_ranks(keys: torch.Tensor, descending: bool = False):
+    """Sort keys, returning (sorted_keys, original_positions as uint32):
+    the columnar primitive — use the positions to gather other columns."""
+    code = keycodec.encode(keys, descending)
+    perm = _stable_order([code])
+    sk = keycodec.decode(_gather(code, perm), keys.dtype, descending)
+    return sk, perm.to(torch.int32).view(torch.uint32)
+
+
+def argsort(keys: torch.Tensor, descending: bool = False) -> torch.Tensor:
+    """Stable argsort of u32/i32/f32 keys (uint32 positions)."""
+    return sort_with_ranks(keys, descending)[1]
