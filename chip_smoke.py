@@ -5,29 +5,50 @@
 
 Phases, in order; any failure exits non-zero and prints no result:
 
-1. Device: the card's name, its power limit (nvidia-smi), and the build of
-   the port's CUDA kernels from the sources in this checkout.
-2. Each kernel (tile sorts with 1, 2 and 3 streams at the 2^15-row tile;
-   merge passes with 1, 2 and 3 streams at run_len 2^15 and 2^18, and a
-   4-run group) against its plain PyTorch version on the card, bit for
+1. Device: the card's name, its power limit (nvidia-smi), the build of
+   the port's CUDA kernels from the sources in this checkout, and the
+   card's copy ceiling (core/roofline.py `measure_copy_gbps`), the
+   denominator of every bound below.
+2. Each kernel against its plain PyTorch version on the card, bit for
    bit, on uniform, all-equal, presorted, reversed, 97-distinct and
-   {0, 0xFFFFFFFF} keys, plus the signed-val tiebreak of sort_tiles_kv.
-3. The flagship path end to end: merge_sort_keys at 2^27 and 2^27 - 12345
-   rows against torch.sort; merge_sort_with_ranks at 2^27 with the
-   stability check; the entry() step (sort_kv at 2^20) with u32 and f32
-   payloads; sort of i32 and f32 keys, descending.
+   {0, 0xFFFFFFFF} keys at n = 2^22: tile sorts with 1, 2 and 3 streams
+   at the 2^15-row tile; merge passes with 1, 2 and 3 streams at run_len
+   2^15 and 2^18, and a 4-run group, plus the signed-val tiebreak of
+   sort_tiles_kv; digit histograms at (r, group) in (1,0), (2,5), (4,3),
+   (8,0), (8,3) and blocks 128, 1024, 2^13, 2^17, and digit_histogram.
+   Then the scans at 2^22, 100000 and 131712 words of full-range u32
+   (wraparound) and of i32, block_prefix_sums at blocks 128, 512 and
+   2^13, and transpose_tiled at (128, 256) and (16384, 256).
+3. The main paths end to end. Merge: merge_sort_keys at 2^27 and
+   2^27 - 12345 rows against torch.sort; merge_sort_with_ranks at 2^27
+   with the stability check; the entry() step (sort_kv at 2^20) with u32
+   and f32 payloads; sort of i32 and f32 keys, descending. Composed (the
+   LSD radix pipeline): sort at 2^27, block 2^13, r = 1, 2, 4, 8 against
+   torch.sort; sort_kv at 2^27, r = 8, with positions (stable); sort_kv
+   with an f32 payload and sort of i32/f32 keys, descending, at 2^20;
+   and the reference's flagship, 2^30 keys, r = 4, block 512, with its
+   peak device memory.
 4. Launch counters: every kernel launched during phase 3, and no plain
    version ran.
-5. Each kernel against its plain version at the main path's shapes, bit
-   for bit: the tile sorts at n = 2^27 (1, 2 and 3 streams), then every
-   merge pass of the chain (run 2^15, 2^18, 2^21, 2^24), each fed the
-   kernel's previous output. Times (CUDA events, median of 5 after a
-   warm-up): keys and kv at 2^27, torch.sort on the same keys, and each
-   of those kernel calls beside its plain version.
+5. Each kernel against its plain version at the main paths' shapes, bit
+   for bit, then both timed (CUDA events, median of 5 after a warm-up),
+   with one PyTorch call computing the same function beside them where
+   there is one: the tile sorts at n = 2^27 (1, 2 and 3 streams) and
+   every merge pass of the chain (run 2^15, 2^18, 2^21, 2^24), each fed
+   the kernel's previous output; the histogram of 2^27 keys at each r,
+   and of 2^27 all-equal keys at r = 8 and 1; exclusive_scan of each r's
+   digit-major histogram and of 2^27 words;
+   exclusive_scan_hierarchical and block_prefix_sums at 2^27;
+   transpose_tiled at (16384, 256) and (8192, 16384). Then the sorts:
+   merge keys and kv, torch.sort, the composed sort at each r and kv at
+   r = 8 (2^27), and at 2^30 the composed r = 4 sort beside
+   merge_sort_keys, the scan and the r = 1 and r = 8 histograms beside
+   the reference's RTX 3060 Ti numbers (BASELINE.md).
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}. Without a CUDA device, or
-without the port's package beside it, the script fails.
+Each phase prints its seconds. The line before the last is a JSON object
+with one entry per kernel; the last line is {"ok": true, "device":
+{...}}. Without a CUDA device, or without the port's package beside it,
+the script fails.
 """
 from __future__ import annotations
 
@@ -46,18 +67,31 @@ def main() -> int:
     from lsdradixsort_tpu_torch.bench.flagship import (check_keys,
                                                        check_ranks,
                                                        torch_sort_u32)
-    from lsdradixsort_tpu_torch.core.convert import iota_u32, u32_to_i64
+    from lsdradixsort_tpu_torch.core import roofline
+    from lsdradixsort_tpu_torch.core.convert import (i64_to_u32, iota_u32,
+                                                     u32_to_i64)
     from lsdradixsort_tpu_torch.core.datagen import (random_keys,
                                                      random_keys_bounded)
     from lsdradixsort_tpu_torch.core.timing import card_label, time_fn
     from lsdradixsort_tpu_torch.entry import entry
     from lsdradixsort_tpu_torch.kernels import _build
+    from lsdradixsort_tpu_torch.kernels import histogram as H
     from lsdradixsort_tpu_torch.kernels import merge as M
+    from lsdradixsort_tpu_torch.kernels import scan as SC
     from lsdradixsort_tpu_torch.kernels import tile_sort as TS
+    from lsdradixsort_tpu_torch.kernels import transpose as TR
     from lsdradixsort_tpu_torch.ops.sort import (merge_sort_keys,
-                                                 merge_sort_with_ranks, sort)
+                                                 merge_sort_with_ranks, sort,
+                                                 sort_kv)
 
     dev = torch.device("cuda")
+    clock = [time.perf_counter()]
+
+    def phase_done(k):
+        now = time.perf_counter()
+        print(f"phase {k}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     # ---- 1. device and build ----------------------------------------------
     name = torch.cuda.get_device_name(0)
     card = card_label()
@@ -71,6 +105,16 @@ def main() -> int:
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print(f"  {line.strip()}")
+    ceiling = roofline.measure_copy_gbps(dev)
+    roof = roofline.detect(dev)
+    print(f"copy ceiling: {ceiling:.1f} GB/s (dst.copy_(src) of 1 GiB, read "
+          f"+ write bytes, median of 5; spec {roof.spec_gbps:.0f} GB/s, "
+          f"recorded {roof.hbm_gbps:.1f} GB/s; {card})")
+
+    def bound_ms(nbytes):
+        return nbytes / (ceiling * 1e9) * 1e3
+
+    phase_done(1)
 
     # ---- 2. kernels against their plain versions ---------------------------
     tile_rows = (1 << 15) // TS.LANES
@@ -90,10 +134,14 @@ def main() -> int:
         }
 
     max_err = {k: 0 for k in ("sort_tiles", "sort_tiles_kv",
-                              "sort_tiles_multi", "merge_pass_multi")}
+                              "sort_tiles_multi", "merge_pass_multi",
+                              "block_digit_histograms", "exclusive_scan",
+                              "exclusive_scan_hierarchical",
+                              "block_prefix_sums", "transpose_tiled")}
 
     def compare(kernel, label, got, want):
         for i, (g, w) in enumerate(zip(got, want, strict=True)):
+            g, w = g.reshape(-1), w.reshape(-1)
             err = int((u32_to_i64(g) - u32_to_i64(w)).abs().max())
             max_err[kernel] = max(max_err[kernel], err)
             check_keys(g, w, f"{kernel} {label} stream {i}")
@@ -146,15 +194,54 @@ def main() -> int:
     compare("merge_pass_multi", "4-run group",
             streams_of(M.merge_pass_multi(k4, v4, 1 << 15)),
             streams_of(M.merge_pass_multi_plain(k4, v4, 1 << 15)))
+    # digit histograms, each family at every (r, group) and block
+    for fam, x in families(n2, 1).items():
+        for r, group in ((1, 0), (2, 5), (4, 3), (8, 0), (8, 3)):
+            for blk in (128, 1024, 1 << 13, 1 << 17):
+                compare("block_digit_histograms",
+                        f"{fam} r={r} group={group} block={blk}",
+                        [H.block_digit_histograms(x, r, group, blk)],
+                        [H.block_digit_histograms_plain(x, r, group, blk)])
+        compare("block_digit_histograms", f"{fam} digit_histogram r=8 g=2",
+                [H.digit_histogram(x, 8, 2)],
+                [H.block_digit_histograms_plain(x, 8, 2, n2)])
+    # scans: full-range u32 (wraparound), ragged lengths, i32
+    for n_s in (n2, 100_000, 131_072 + 640):
+        for dt in (torch.uint32, torch.int32):
+            xs = random_keys(n_s, 8, dev, dtype=dt)
+            for kname, fn, plain_fn in (
+                    ("exclusive_scan", SC.exclusive_scan,
+                     SC.exclusive_scan_plain),
+                    ("exclusive_scan_hierarchical",
+                     SC.exclusive_scan_hierarchical,
+                     SC.exclusive_scan_hierarchical_plain)):
+                got = fn(xs)
+                if got.dtype != dt:
+                    raise AssertionError(f"{kname} returned {got.dtype}")
+                compare(kname, f"n={n_s} {dt}", [got], [plain_fn(xs)])
+    xs = random_keys(n2, 9, dev)
+    for blk in (128, 512, 1 << 13):
+        compare("block_prefix_sums", f"block={blk}",
+                list(SC.block_prefix_sums(xs, blk)),
+                list(SC.block_prefix_sums_plain(xs, blk)))
+    for shape, tile, dt in (((128, 256), 128, torch.int32),
+                            ((16384, 256), 256, torch.uint32),
+                            ((16384, 256), 256, torch.int32)):
+        a = random_keys(shape[0] * shape[1], 10, dev, dtype=dt).view(shape)
+        compare("transpose_tiled", f"{shape} {dt}",
+                [TR.transpose_tiled(a, tile)], [TR.transpose_plain(a)])
     torch.cuda.synchronize()
     print(f"phase 2: kernels bit exact against plain versions "
           f"(6 key families, n=2^22, tile 2^15; "
           f"max_abs_err {max_err})")
+    phase_done(2)
 
     # ---- 3. main path end to end -------------------------------------------
-    for counts in (TS.LAUNCHES, TS.PLAIN_CALLS, M.LAUNCHES, M.PLAIN_CALLS):
-        for k in counts:
-            counts[k] = 0
+    counters = [(mod.LAUNCHES, mod.PLAIN_CALLS) for mod in (TS, M, H, SC, TR)]
+    for pair in counters:
+        for counts in pair:
+            for k in counts:
+                counts[k] = 0
     n = 1 << 27
     keys = random_keys(n, 0, dev)
     want, want_perm = torch_sort_u32(keys)
@@ -190,9 +277,44 @@ def main() -> int:
           "merge_sort_with_ranks 2^27 (stable), entry sort_kv 2^20 "
           "(u32, f32 payloads), sort i32/f32 descending: verified")
 
+    # the composed LSD radix pipeline
+    for r in (1, 2, 4, 8):
+        check_keys(sort(keys, strategy="composed", r=r), want,
+                   f"composed sort 2^27 r={r}")
+    sk, sr = sort_kv(keys, iota_u32(n, dev), strategy="composed", r=8)
+    check_ranks(keys, sk, sr, want, "composed sort_kv 2^27 r=8")
+    del sk, sr
+    sk, sp = sort_kv(ek, fpay, strategy="composed")
+    check_keys(sk, ewant, "composed sort_kv 2^20 keys")
+    check_keys(sp.view(torch.uint32), fpay[eperm].view(torch.uint32),
+               "composed sort_kv f32 payload")
+    check_keys(sort(ki, strategy="composed", descending=True)
+               .view(torch.uint32),
+               torch.sort(ki, descending=True).values.view(torch.uint32),
+               "composed sort i32 descending")
+    check_keys(sort(kf, strategy="composed", descending=True)
+               .view(torch.uint32),
+               torch.sort(kf, descending=True).values.view(torch.uint32),
+               "composed sort f32 descending")
+    big = random_keys(1 << 30, 11, dev)
+    big_want = torch_sort_u32(big)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    check_keys(sort(big, strategy="composed", r=4, block_size=512), big_want,
+               "composed sort 2^30 r=4 block=512")
+    del big_want
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 3: composed sort 2^27 r=1,2,4,8 (block 2^13), sort_kv "
+          f"2^27 r=8 (stable), sort_kv f32 payload 2^20, sort i32/f32 "
+          f"descending 2^20, sort 2^30 r=4 block 512: verified; 2^30 peak "
+          f"device memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB "
+          f"held before the sort)")
+    phase_done(3)
+
     # ---- 4. launch counters -----------------------------------------------
-    launches = {**TS.LAUNCHES, **M.LAUNCHES}
-    plain = {**TS.PLAIN_CALLS, **M.PLAIN_CALLS}
+    launches = {k: v for pair in counters for k, v in pair[0].items()}
+    plain = {k: v for pair in counters for k, v in pair[1].items()}
     print(f"phase 4: kernel launches {launches}; plain calls {plain}")
     idle = [k for k, v in launches.items() if v == 0]
     if idle:
@@ -200,6 +322,7 @@ def main() -> int:
                              f"{idle}")
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on the main path: {plain}")
+    phase_done(4)
 
     # ---- 5. kernels at the main path's shapes; times ---------------------
     def report(what, t, elems=n):
@@ -216,41 +339,166 @@ def main() -> int:
     # each kernel against its plain version at the main path's shapes: the
     # tile sort at n = 2^27, then every merge pass of the chain (run 2^15,
     # 2^18, 2^21, 2^24), each fed the kernel's previous output; checked bit
-    # for bit, then both timed on the same inputs
+    # for bit, then both timed on the same inputs. The first call of each
+    # kernel fills its row of the kernels line: ms, plain ms, the bound
+    # (its bytes over the copy ceiling) and the library call's ms.
     iota = iota_u32(n, dev)
     pay = random_keys(n, 2, dev)
-    kernel_ms = {}
+    rows = {}
 
-    def check_and_time(kname, what, fn, plain_fn, args):
+    def check_and_time(kname, what, fn, plain_fn, args, nbytes,
+                       library=None, elems=n):
         got = streams_of(fn(*args))
-        compare(kname, f"{what} n=2^27", got, streams_of(plain_fn(*args)))
+        compare(kname, f"{what} n={elems}", got, streams_of(plain_fn(*args)))
         tk = time_fn(fn, *args)
         tp = time_fn(plain_fn, *args)
-        print(f"kernel {kname} [{what}] n={n}: bit exact; cuda {tk.ms:.3f} "
-              f"ms, plain {tp.ms:.3f} ms ({card})")
-        kernel_ms.setdefault(kname, (tk.ms, tp.ms))
+        tl = time_fn(library) if library is not None else None
+        lib = f", library {tl.ms:.3f} ms" if tl is not None else ""
+        print(f"kernel {kname} [{what}] n={elems}: bit exact; cuda "
+              f"{tk.ms:.3f} ms, plain {tp.ms:.3f} ms{lib}, bound "
+              f"{bound_ms(nbytes):.3f} ms ({nbytes} bytes; {card})")
+        rows.setdefault(kname, {
+            "ms": tk.ms, "plain_ms": tp.ms, "bound_ms": bound_ms(nbytes),
+            "bound_by": "bytes",
+            "library_ms": tl.ms if tl is not None else None,
+            "shape": f"{what} n={elems}"})
         return got
 
+    def flipped(x):
+        return x.view(torch.int32) ^ -(1 << 31)
+
+    tile = tile_rows * TS.LANES
     chains = [
         ("sort_tiles", "keys", TS.sort_tiles, TS.sort_tiles_plain,
-         (keys, tile_rows)),
+         (keys, tile_rows),
+         lambda: torch.sort(flipped(keys).view(-1, tile), dim=1)),
         ("sort_tiles_kv", "key+pos", TS.sort_tiles_kv,
-         TS.sort_tiles_kv_plain, (keys, iota, tile_rows)),
+         TS.sort_tiles_kv_plain, (keys, iota, tile_rows), None),
         ("sort_tiles_multi", "key+pos+payload", TS.sort_tiles_multi,
-         TS.sort_tiles_multi_plain, (keys, [iota, pay], tile_rows)),
+         TS.sort_tiles_multi_plain, (keys, [iota, pay], tile_rows), None),
     ]
-    for kname, what, fn, plain_fn, args in chains:
-        streams = check_and_time(kname, what, fn, plain_fn, args)
+    for kname, what, fn, plain_fn, args, library in chains:
+        nbytes = 2 * 4 * n * (len(args) - 1 if kname != "sort_tiles_multi"
+                              else 3)
+        streams = check_and_time(kname, what, fn, plain_fn, args, nbytes,
+                                 library)
         run = 1 << 15
         while run < n:
+            x0, group = streams[0], min(M.KWAY * run, n)
             streams = check_and_time(
                 "merge_pass_multi",
                 f"{what} run=2^{run.bit_length() - 1}", M.merge_pass_multi,
-                M.merge_pass_multi_plain, (streams[0], streams[1:], run))
+                M.merge_pass_multi_plain, (streams[0], streams[1:], run),
+                2 * 4 * n * len(streams),
+                (lambda x0=x0, group=group: torch.sort(
+                    flipped(x0).view(-1, group), dim=1))
+                if len(streams) == 1 else None)
             run *= M.KWAY
         del streams
-    print(f"phase 5: every kernel bit exact against its plain version along "
-          f"the main path at n=2^27 (max_abs_err {max_err})")
+    print(f"phase 5: every merge-path kernel bit exact against its plain "
+          f"version along the main path at n=2^27 (max_abs_err {max_err})")
+
+    def tile_sums(x):
+        """The tile totals that exclusive_scan hands on to
+        exclusive_scan_hierarchical, computed plainly."""
+        v = u32_to_i64(x)
+        v = torch.nn.functional.pad(v, (0, -v.shape[0] % SC._tile()))
+        return i64_to_u32(v.view(-1, SC._tile()).sum(1) & 0xFFFFFFFF)
+
+    # at the sizes the JAX bench suites and the reference use for them;
+    # these calls fill the two scans' rows of the kernels line
+    for kname, what, fn, plain_fn, args, nbytes, library in (
+            ("exclusive_scan_hierarchical", "2^27 words",
+             SC.exclusive_scan_hierarchical,
+             SC.exclusive_scan_hierarchical_plain, (keys,), 8 * n,
+             lambda: torch.cumsum(keys.view(torch.int32), 0,
+                                  dtype=torch.int32)),
+            ("block_prefix_sums", "2^27 words, block 2^13",
+             SC.block_prefix_sums, SC.block_prefix_sums_plain,
+             (keys, 1 << 13), 8 * n + 4 * (n >> 13),
+             lambda: torch.cumsum(keys.view(torch.int32).view(-1, 1 << 13),
+                                  1, dtype=torch.int32))):
+        check_and_time(kname, what, fn, plain_fn, args, nbytes, library)
+
+    # the composed path's kernels at its shapes (2^27 keys, block 2^13)
+    blk = 1 << 13
+    nb = n // blk
+    for r in (8, 4, 2, 1):
+        bins = 1 << r
+        hist = check_and_time(
+            "block_digit_histograms", f"r={r} group=0 block=2^13",
+            H.block_digit_histograms, H.block_digit_histograms_plain,
+            (keys, r, 0, blk), 4 * n + 4 * nb * bins)[0]
+        digit_major = TR.transpose_any(hist).view(-1)
+        check_and_time(
+            "exclusive_scan", f"digit-major histogram r={r}",
+            SC.exclusive_scan, SC.exclusive_scan_plain, (digit_major,),
+            8 * nb * bins,
+            lambda x=digit_major: torch.cumsum(x.view(torch.int32), 0,
+                                               dtype=torch.int32),
+            elems=nb * bins)
+        check_and_time(
+            "block_prefix_sums", f"histogram rows r={r} (block 2^{r})",
+            SC.block_scans, SC._block_scans_plain, (hist.view(-1), bins),
+            8 * nb * bins + 4 * nb, elems=nb * bins)
+        totals = tile_sums(digit_major)
+        check_and_time(
+            "exclusive_scan_hierarchical",
+            f"tile totals of the r={r} digit-major scan",
+            SC.exclusive_scan_hierarchical,
+            SC.exclusive_scan_hierarchical_plain, (totals,),
+            8 * totals.shape[0], elems=totals.shape[0])
+        check_and_time(
+            "transpose_tiled", f"histogram r={r} ({nb}, {bins})",
+            TR.transpose_any, TR.transpose_plain, (hist,), 8 * nb * bins,
+            lambda h=hist: h.t().contiguous(), elems=nb * bins)
+    # all-equal keys: every key of a block lands in one counter
+    same = torch.full((n,), 0x5EEDBEEF, dtype=torch.int32,
+                      device=dev).view(torch.uint32)
+    for r in (8, 1):
+        check_and_time(
+            "block_digit_histograms", f"all-equal keys r={r} block=2^13",
+            H.block_digit_histograms, H.block_digit_histograms_plain,
+            (same, r, 0, blk), 4 * n + 4 * nb * (1 << r))
+    del same
+    check_and_time("exclusive_scan", "2^27 words", SC.exclusive_scan,
+                   SC.exclusive_scan_plain, (keys,), 8 * n,
+                   lambda: torch.cumsum(keys.view(torch.int32), 0,
+                                        dtype=torch.int32))
+    for shape in ((16384, 256), (8192, 16384)):
+        a = random_keys(shape[0] * shape[1], 12, dev).view(shape)
+        check_and_time("transpose_tiled", f"{shape}", TR.transpose_tiled,
+                       lambda x, t: TR.transpose_plain(x), (a, 256),
+                       8 * a.numel(), lambda a=a: a.t().contiguous(),
+                       elems=a.numel())
+    del a
+    print(f"phase 5: every composed-path kernel bit exact against its plain "
+          f"version at n=2^27 (max_abs_err {max_err})")
+
+    # the sorts: composed at each r and kv, then the reference's 2^30
+    for r in (1, 2, 4, 8):
+        report(f"composed sort r={r} block 2^13",
+               time_fn(sort, keys, "composed", r))
+    report("composed sort_kv r=8 (positions)",
+           time_fn(lambda k, v: sort_kv(k, v, strategy="composed", r=8),
+                   keys, iota))
+    del iota, pay
+    n30 = 1 << 30
+    report("composed sort 2^30 r=4 block 512 (reference: 2683.12 ms on an "
+           "RTX 3060 Ti)",
+           time_fn(lambda k: sort(k, strategy="composed", r=4,
+                                  block_size=512), big), n30)
+    report("merge_sort_keys 2^30", time_fn(merge_sort_keys, big), n30)
+    report("exclusive_scan 2^30 (reference: 70.410 ms on an RTX 3060 Ti)",
+           time_fn(SC.exclusive_scan, big), n30)
+    report("histogram 2^30 r=1 block 128 (reference: 14.446 ms on an RTX "
+           "3060 Ti)", time_fn(H.block_digit_histograms, big, 1, 0, 128),
+           n30)
+    report("histogram 2^30 r=8 block 512 (reference: 18.974 ms on an RTX "
+           "3060 Ti)", time_fn(H.block_digit_histograms, big, 8, 0, 512),
+           n30)
+    del big
+    phase_done(5)
 
     sources = {
         "sort_tiles": ("lsdradixsort_tpu_torch/csrc/tile_sort.cu",
@@ -261,11 +509,22 @@ def main() -> int:
                              "lsdradixsort_tpu/kernels/tile_sort.py:298"),
         "merge_pass_multi": ("lsdradixsort_tpu_torch/csrc/merge.cu",
                              "lsdradixsort_tpu/kernels/merge.py:626"),
+        "block_digit_histograms": (
+            "lsdradixsort_tpu_torch/csrc/histogram.cu",
+            "lsdradixsort_tpu/kernels/histogram.py:183"),
+        "exclusive_scan": ("lsdradixsort_tpu_torch/csrc/scan.cu",
+                           "lsdradixsort_tpu/kernels/scan.py:128"),
+        "exclusive_scan_hierarchical": (
+            "lsdradixsort_tpu_torch/csrc/scan.cu",
+            "lsdradixsort_tpu/kernels/scan.py:181"),
+        "block_prefix_sums": ("lsdradixsort_tpu_torch/csrc/scan.cu",
+                              "lsdradixsort_tpu/kernels/scan.py:232"),
+        "transpose_tiled": ("lsdradixsort_tpu_torch/csrc/transpose.cu",
+                            "lsdradixsort_tpu/kernels/transpose.py:48"),
     }
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k], "max_abs_err": max_err[k],
-         "ms": kernel_ms[k][0], "plain_ms": kernel_ms[k][1]}
+         "launches": launches[k], "max_abs_err": max_err[k], **rows[k]}
         for k, (src, rep) in sources.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -9,15 +9,20 @@ kernel for sm_90a (csrc/), built with nvcc at first use
 PyTorch version instead.
 
 Layer map:
-  core/      key codecs, numpy <-> tensor conversion, data generation,
-             CUDA-event timing
-  kernels/   tile sort and 8-way merge pass (CUDA + plain versions)
+  core/      key codecs, digit math, numpy <-> tensor conversion, data
+             generation, CUDA-event timing, the roofline
+  kernels/   tile sort, 8-way merge pass, digit histogram, exclusive
+             scans, tiled transpose (CUDA + plain versions)
   ops/       the sort operators (merge_sort_*, sort, sort_kv, ...)
   utils/     bit-exact verification helpers
   bench/     the flagship benchmark (bench/flagship.py)
 """
+from lsdradixsort_tpu_torch.kernels.histogram import (block_digit_histograms,
+                                                      digit_histogram)
 from lsdradixsort_tpu_torch.kernels.merge import (merge_pass, merge_pass_kv,
                                                   merge_pass_multi)
+from lsdradixsort_tpu_torch.kernels.scan import (block_prefix_sums,
+                                                 exclusive_scan)
 from lsdradixsort_tpu_torch.kernels.tile_sort import (sort_tiles,
                                                       sort_tiles_kv,
                                                       sort_tiles_multi)
@@ -31,4 +36,6 @@ __all__ = [
     "merge_sort_keys", "merge_sort_with_ranks", "merge_sort_multi",
     "sort_tiles", "sort_tiles_kv", "sort_tiles_multi",
     "merge_pass", "merge_pass_kv", "merge_pass_multi",
+    "digit_histogram", "block_digit_histograms",
+    "exclusive_scan", "block_prefix_sums",
 ]

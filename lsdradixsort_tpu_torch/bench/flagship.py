@@ -20,11 +20,13 @@ The last line on stdout is one JSON object:
 --verify first checks both sorts against `torch.sort` on the card: keys
 bit for bit, and for the ranks sorted keys, keys[ranks] == sorted keys, a
 permutation, and strictly ascending ranks within equal keys (stability,
-as bench.py:240-252). --profile then traces one more run of each sort
-with torch.profiler and prints, before the result line, one JSON line per
-sort: {"profile": <sort>, "kernels": count, "busy_ms", "span_ms",
-"idle_share", "top": [[kernel, ms, calls], ...], "card"}. The timed runs
-are untraced. There is no CPU fallback: without a CUDA device it fails.
+as bench.py:240-252). --profile then traces one more run of each sort,
+and of the composed LSD radix sort (`sort(strategy="composed")`, block
+2^13) at r = 4 and r = 8, with torch.profiler and prints, before the
+result line, one JSON line per sort: {"profile": <sort>, "kernels":
+count, "busy_ms", "span_ms", "idle_share", "top": [[kernel, ms, calls],
+...], "card"}. The timed runs are untraced. There is no CPU fallback:
+without a CUDA device it fails.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ from lsdradixsort_tpu_torch.core.convert import u32_to_i64
 from lsdradixsort_tpu_torch.core.datagen import random_keys
 from lsdradixsort_tpu_torch.core.timing import card_label, time_fn
 from lsdradixsort_tpu_torch.ops.sort import merge_sort_keys, \
-    merge_sort_with_ranks
+    merge_sort_with_ranks, sort
 
 REFERENCE_GELEMS_PER_S = 0.400  # BASELINE.md best full-sort config
 N = 1 << 27
@@ -78,7 +80,7 @@ def check_ranks(keys: torch.Tensor, sk: torch.Tensor, sr: torch.Tensor,
         raise AssertionError(f"{label}: ranks not ascending within ties")
 
 
-def profile_kernels(label: str, fn, *args, top: int = 12) -> dict:
+def profile_kernels(label: str, fn, *args, top: int = 16) -> dict:
     """Trace one run of fn(*args): device time per kernel and the idle
     share of the span from the first kernel's start to the last kernel's
     end."""
@@ -126,7 +128,11 @@ def main(argv=None) -> int:
     if args.profile:
         for label, fn in (("merge_sort_keys", merge_sort_keys),
                           ("merge_sort_with_ranks", merge_sort_with_ranks),
-                          ("torch.sort", torch_sort_u32)):
+                          ("torch.sort", torch_sort_u32),
+                          ("sort composed r=4",
+                           lambda k: sort(k, strategy="composed", r=4)),
+                          ("sort composed r=8",
+                           lambda k: sort(k, strategy="composed", r=8))):
             print(json.dumps({**profile_kernels(label, fn, keys),
                               "card": card}))
     t_keys = time_fn(merge_sort_keys, keys, iters=ITERS)

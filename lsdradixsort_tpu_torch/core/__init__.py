@@ -1,1 +1,2 @@
-from lsdradixsort_tpu_torch.core import convert, datagen, keycodec, timing  # noqa: F401
+from lsdradixsort_tpu_torch.core import (convert, datagen, digits,  # noqa: F401
+                                         keycodec, roofline, timing)

@@ -1,7 +1,9 @@
 """Deterministic data generation on a `torch.Generator`.
 
 Counterpart of lsdradixsort_tpu/core/datagen.py: every input is
-reproducible from an integer seed and is generated on the chosen device.
+reproducible from an integer seed and is generated on the chosen device,
+the card unless the caller names another (as `jax.random` draws on the
+default device).
 The bits differ from `jax.random`'s, so tests that compare the two
 packages make their inputs with numpy and pass them through
 `core.convert.from_numpy` instead.
@@ -19,7 +21,7 @@ def _generator(seed: int, device) -> torch.Generator:
     return g
 
 
-def random_keys(n: int, seed: int = 0, device="cpu",
+def random_keys(n: int, seed: int = 0, device="cuda",
                 dtype=torch.uint32) -> torch.Tensor:
     """Uniform random 32-bit keys over the full range of the bits
     (uint32, int32 or float32 bit patterns), generated on `device`."""
@@ -28,14 +30,14 @@ def random_keys(n: int, seed: int = 0, device="cpu",
     return bits.view(dtype)
 
 
-def random_kv(n: int, seed: int = 0, device="cpu"):
+def random_kv(n: int, seed: int = 0, device="cuda"):
     """(keys, values): uniform u32 keys and distinct row ids as values, so
     stability is checkable bit for bit."""
     return random_keys(n, seed, device), iota_u32(n, device)
 
 
 def random_keys_bounded(n: int, lo: int, hi: int, seed: int = 0,
-                        device="cpu") -> torch.Tensor:
+                        device="cuda") -> torch.Tensor:
     """Uniform u32 keys in [lo, hi), 0 <= lo < hi <= 2^32."""
     if not 0 <= lo < hi <= 1 << 32:
         raise ValueError(f"need 0 <= lo < hi <= 2^32, got [{lo}, {hi})")

@@ -1,11 +1,15 @@
 """Build and load the port's CUDA kernels.
 
 nvcc compiles every ``lsdradixsort_tpu_torch/csrc/*.cu`` for
-``sm_90a`` into one shared library with a plain C interface, which is
+``sm_90a`` (one nvcc process a source, all started together) and links
+the objects into one shared library with a plain C interface, which is
 loaded with ctypes (no PyTorch headers, so the build takes seconds). The
 build runs at first use, goes into ``build/torch_kernels/`` at the root of
 the checkout, and is cached under a hash of the sources and flags: a
 changed source builds a new library, an unchanged one is loaded again.
+Non-static symbols share one namespace across the sources: keep kernels
+and helpers in an anonymous namespace, and give each C entry point an
+``lsd_`` name of its own.
 
 Every C entry point returns a ``cudaError_t``; `check` raises on a
 non-zero one. Pointers and the stream are passed as ``c_void_p``.
@@ -23,8 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-lineinfo", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-lineinfo", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -58,13 +61,36 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+    nvcc = _nvcc()
+    jobs = []
+    for src in _sources():
+        obj = tmp.with_suffix(f".{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        with open(obj.with_suffix(".log"), "w") as log:
+            proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+        jobs.append((cmd, obj, proc))
+    logs, failed = [], []
+    for cmd, obj, proc in jobs:
+        rc = proc.wait()
+        logs.append(" ".join(cmd) + "\n" + obj.with_suffix(".log").read_text())
+        obj.with_suffix(".log").unlink()
+        if rc != 0:
+            failed.append(f"{Path(cmd[-1]).name}: nvcc exit {rc}")
+    objs = [str(obj) for _, obj, _ in jobs]
+    if not failed:
+        link = [nvcc, "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(link, capture_output=True, text=True,
+                              check=False)
+        logs.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link: nvcc exit {proc.returncode}")
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
+    text = "\n".join(logs)
+    out.with_suffix(".log").write_text(text)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({'; '.join(failed)}):\n"
+                           f"{text[-4000:]}")
     os.replace(tmp, out)
     return out
 

@@ -1,0 +1,73 @@
+"""Matrix transpose — the port of lsdradixsort_tpu/kernels/transpose.py.
+
+  * `transpose`: the plain `a.t().contiguous()`, as the JAX package's
+    `transpose` is XLA's `.T`.
+  * `transpose_tiled`: the kernel (TransposeSMEMKernel, LSDRadixSort.cu:
+    512-544). 4-byte dtypes; (rows, cols) -> (cols, rows). `tile` is the
+    TPU's block: only its divisibility check is kept, for API parity.
+
+On a CUDA tensor `transpose_tiled` launches ``csrc/transpose.cu`` (32 x 32
+shared-memory tiles; its header says what bounds it); on a CPU tensor it
+runs the plain version, which `chip_smoke.py` also runs on the card to
+check the kernel. `LAUNCHES` and `PLAIN_CALLS` count both.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from lsdradixsort_tpu_torch.kernels import _build
+
+LAUNCHES = {"transpose_tiled": 0}
+PLAIN_CALLS = {"transpose_tiled": 0}
+
+
+def transpose(a: torch.Tensor) -> torch.Tensor:
+    """Transpose a 2-D tensor (Transpose golden: LSDRadixSort.cu:483-494)."""
+    return a.t().contiguous()
+
+
+def _check(a: torch.Tensor) -> None:
+    if a.dim() != 2 or a.element_size() != 4:
+        raise ValueError(f"transpose_tiled takes a 2-D tensor of a 4-byte "
+                         f"dtype, got {a.dtype} {tuple(a.shape)}")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {a.device}")
+
+
+def transpose_plain(a: torch.Tensor) -> torch.Tensor:
+    _check(a)
+    PLAIN_CALLS["transpose_tiled"] += 1
+    return a.t().contiguous()
+
+
+def transpose_any(a: torch.Tensor) -> torch.Tensor:
+    """(cols, rows) transpose of a 2-D 4-byte tensor of any shape: the
+    launch behind `transpose_tiled`, which the composed sort also calls on
+    its (blocks, 2^r) histogram."""
+    if a.device.type == "cpu":
+        return transpose_plain(a)
+    _check(a)
+    a = a.contiguous()
+    rows, cols = a.shape
+    out = torch.empty((cols, rows), dtype=a.dtype, device=a.device)
+    with torch.cuda.device(a.device):
+        fn = _build.function("lsd_transpose", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_void_p])
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        _build.check(fn(a.data_ptr(), out.data_ptr(), rows, cols,
+                        ctypes.c_void_p(stream)), "lsd_transpose")
+    LAUNCHES["transpose_tiled"] += 1
+    return out
+
+
+def transpose_tiled(a: torch.Tensor, tile: int = 256) -> torch.Tensor:
+    """Tiled transpose (TransposeSMEMKernel equivalent, cu:512-544).
+    Requires both dims divisible by `tile`."""
+    rows, cols = a.shape
+    if rows % tile or cols % tile:
+        raise ValueError(f"dims {tuple(a.shape)} must be divisible by "
+                         f"tile={tile}")
+    return transpose_any(a)

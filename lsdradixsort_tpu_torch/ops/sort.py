@@ -19,8 +19,19 @@ Strategy "xla" — `jax.lax.sort` in the JAX package — is a stable
 `torch.sort` of the codes here, as are the other places where the JAX
 package sorts with `lax.sort` by design (the sentinel-collision path of
 `merge_sort_multi`, non-32-bit payloads in `sort_kv`, `sort_with_ranks`).
-Strategy "composed" needs the histogram and scan kernels, which are
-ROADMAP Queue A item 7.
+
+Strategy "composed" is the LSD radix pipeline, one stable pass per r-bit
+digit group, with the reference's pass structure (GPULSDRadixSort,
+LSDRadixSort.cu:845-906): per-block digit histograms
+(kernels/histogram.py), each block's exclusive digit offsets (the scan of
+its histogram row, kernels/scan.py `block_scans`), the digit-major
+transpose of the histogram (kernels/transpose.py) and its global
+exclusive scan (`exclusive_scan`), then a stable rank and scatter. The
+JAX package writes the local scan and the transpose as jnp (sort.py:523,
+:527); the port runs them through the ported kernels, as the reference
+does. The rank and scatter stay torch glue, as they are jnp there: a
+stable per-block sort of the digits, gathers, and one indexed store that
+uses every destination once.
 
 The JAX engine's TPU tuning knobs (max_buf, blk, ce, pipeline) are
 accepted for API parity and change nothing. The port's merge has no
@@ -34,20 +45,18 @@ import torch
 from lsdradixsort_tpu_torch.core import keycodec
 from lsdradixsort_tpu_torch.core.convert import i64_to_u32, iota_u32, \
     order_key, u32_to_i64
+from lsdradixsort_tpu_torch.core.digits import get_digit, num_digit_groups
+from lsdradixsort_tpu_torch.kernels.histogram import block_digit_histograms
 from lsdradixsort_tpu_torch.kernels.merge import (KWAY, merge_pass,
                                                   merge_pass_kv,
                                                   merge_pass_multi)
+from lsdradixsort_tpu_torch.kernels.scan import block_scans, exclusive_scan
 from lsdradixsort_tpu_torch.kernels.tile_sort import (LANES, sort_tiles,
                                                       sort_tiles_kv,
                                                       sort_tiles_multi)
+from lsdradixsort_tpu_torch.kernels.transpose import transpose_any
 
 _STRATEGIES = ("merge", "xla", "composed")
-
-
-def _composed_unported():
-    return NotImplementedError(
-        "strategy='composed' needs the histogram and scan kernels, which "
-        "are not ported yet (ROADMAP Queue A item 7)")
 
 
 def _padded_size(n: int, tile: int) -> int:
@@ -166,7 +175,7 @@ def sort(keys: torch.Tensor, strategy: str = "merge", r: int = 8,
     elif strategy == "xla":
         out = i64_to_u32(torch.sort(u32_to_i64(code)).values)
     elif strategy == "composed":
-        raise _composed_unported()
+        out = _composed_lsd_sort(code, r, block_size)
     else:
         raise ValueError(
             f"unknown strategy {strategy!r}; pick from {_STRATEGIES}")
@@ -182,7 +191,8 @@ def sort_kv(keys: torch.Tensor, values, strategy: str = "merge", r: int = 8,
     "merge" runs the framework engine: the row index is the compared
     tiebreak and every 32-bit payload rides as its uint32 bits (a view,
     never a conversion); payloads of other widths take "xla", a stable
-    torch.sort of the codes."""
+    torch.sort of the codes. "composed" (n % block_size == 0) moves each
+    (n,) payload, of any dtype, by its bits at every radix pass."""
     code = keycodec.encode(keys, descending)
     single = isinstance(values, torch.Tensor)
     flat = [values] if single else list(values)
@@ -200,7 +210,7 @@ def sort_kv(keys: torch.Tensor, values, strategy: str = "merge", r: int = 8,
         perm = _stable_order([code])
         sk, back = _gather(code, perm), [_gather(v, perm) for v in flat]
     elif strategy == "composed":
-        raise _composed_unported()
+        sk, back = _composed_lsd_sort_kv(code, flat, r, block_size)
     else:
         raise ValueError(
             f"unknown strategy {strategy!r}; pick from {_STRATEGIES}")
@@ -220,3 +230,94 @@ def sort_with_ranks(keys: torch.Tensor, descending: bool = False):
 def argsort(keys: torch.Tensor, descending: bool = False) -> torch.Tensor:
     """Stable argsort of u32/i32/f32 keys (uint32 positions)."""
     return sort_with_ranks(keys, descending)[1]
+
+
+# ---------------------------------------------------------------------------
+# Composed LSD radix pipeline (reference pass structure, cu:845-906)
+# ---------------------------------------------------------------------------
+
+_INT_OF_WIDTH = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                 8: torch.int64}
+
+
+def _digit_dtype(r: int):
+    """The narrowest dtype that holds an r-bit digit: the per-block sort
+    then moves fewer bytes."""
+    return torch.uint8 if r <= 8 else torch.int16 if r <= 15 else torch.int32
+
+
+def _pass_destinations(keys: torch.Tensor, r: int, group: int,
+                       block_size: int):
+    """One stable radix pass's plan, as (order, dst), both (nb, B) int64:
+    the row at sorted position j of block b is row order[b, j] of that
+    block, and goes to dst[b, j].
+
+    dst = global_offset[digit][block] + local_rank: the global offsets are
+    the exclusive scan of the digit-major (transposed) histogram matrix
+    (cu:877-895), and a row's local rank, its stable rank among equal
+    digits in its block (cu:829-833), is its position in the block sorted
+    stably by digit less the block's count of smaller digits. The JAX
+    package inverts the sort's permutation to put dst in row order; the
+    port scatters straight from sorted order, which gives the same output.
+    """
+    n = keys.shape[0]
+    nb, bins = n // block_size, 1 << r
+    hist = block_digit_histograms(keys, r, group, block_size)   # (nb, bins)
+    # per-block exclusive digit offsets: each histogram row scanned
+    lofs, _ = block_scans(hist.view(-1), bins)
+    # digit-major global offsets: transpose + flat exclusive scan
+    gofs = exclusive_scan(transpose_any(hist).view(-1))
+    # where block b's digit-d rows start in the output, less their offset
+    # in the block: dst = start[b, d] + sorted position
+    start = (u32_to_i64(gofs).view(bins, nb).t()
+             - u32_to_i64(lofs).view(nb, bins))
+    digits = get_digit(keys, r, group).to(_digit_dtype(r))
+    sorted_digits, order = torch.sort(digits.view(nb, block_size), dim=1,
+                                      stable=True)
+    del digits
+    dst = start.gather(1, sorted_digits.to(torch.int64))
+    del sorted_digits
+    dst += torch.arange(block_size, device=keys.device)
+    return order, dst
+
+
+def _composed_pass(keys: torch.Tensor, payloads, r: int, group: int,
+                   block_size: int):
+    """One stable radix pass: keys and every (n,) payload moved by their
+    bits to the pass's destinations."""
+    order, dst = _pass_destinations(keys, r, group, block_size)
+    dst = dst.view(-1)
+    outs = []
+    for s in (keys, *payloads):
+        bits = s.contiguous().view(_INT_OF_WIDTH[s.element_size()])
+        src = bits.view(order.shape).gather(1, order).view(-1)
+        out = torch.empty_like(bits)
+        out.index_copy_(0, dst, src)       # every destination exactly once
+        outs.append(out.view(s.dtype))
+        del src
+    return outs[0], outs[1:]
+
+
+def _check_composed(keys: torch.Tensor, payloads, block_size: int) -> None:
+    n = keys.shape[0]
+    if n % block_size:
+        raise ValueError(f"composed strategy needs n % block_size == 0 "
+                         f"(n={n}, block_size={block_size})")
+    for v in payloads:
+        if v.dim() != 1 or v.shape[0] != n:
+            raise ValueError(f"composed payloads must be (n,) = ({n},), "
+                             f"got {tuple(v.shape)}")
+
+
+def _composed_lsd_sort(keys: torch.Tensor, r: int, block_size: int
+                       ) -> torch.Tensor:
+    return _composed_lsd_sort_kv(keys, [], r, block_size)[0]
+
+
+def _composed_lsd_sort_kv(keys: torch.Tensor, values, r: int,
+                          block_size: int):
+    values = list(values)
+    _check_composed(keys, values, block_size)
+    for group in range(num_digit_groups(r)):
+        keys, values = _composed_pass(keys, values, r, group, block_size)
+    return keys, values

@@ -108,12 +108,14 @@ def test_convert_roundtrip_bits(rng, dtype):
 
 
 def test_datagen_seeded_and_bounded():
-    a, b = random_keys(1000, seed=5), random_keys(1000, seed=5)
+    cpu = "cpu"                       # the generators default to the card
+    a, b = random_keys(1000, 5, cpu), random_keys(1000, 5, cpu)
     assert a.dtype == torch.uint32 and torch.equal(a, b)
-    assert not torch.equal(a, random_keys(1000, seed=6))
-    kb = to_numpy(random_keys_bounded(5000, 7, 107, seed=1))
+    assert not torch.equal(a, random_keys(1000, 6, cpu))
+    kb = to_numpy(random_keys_bounded(5000, 7, 107, seed=1, device=cpu))
     assert kb.min() >= 7 and kb.max() < 107 and np.unique(kb).size == 100
-    top = to_numpy(random_keys_bounded(5000, (1 << 32) - 3, 1 << 32))
+    top = to_numpy(random_keys_bounded(5000, (1 << 32) - 3, 1 << 32,
+                                       device=cpu))
     assert set(top.tolist()) == {(1 << 32) - 3, (1 << 32) - 2, (1 << 32) - 1}
-    _, v = random_kv(10)
+    _, v = random_kv(10, device=cpu)
     np.testing.assert_array_equal(to_numpy(v), np.arange(10, dtype=np.uint32))

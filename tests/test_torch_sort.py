@@ -178,14 +178,80 @@ def test_sort_with_ranks_and_argsort_match_jax():
 
 def test_strategies_and_dtypes_raise():
     x = from_numpy(np.arange(64, dtype=np.uint32))
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        T.sort(x, strategy="composed")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        T.sort_kv(x, x, strategy="composed")
+    with pytest.raises(ValueError, match="n % block_size"):
+        T.sort(x, strategy="composed")                 # 64 % 2^13
+    with pytest.raises(ValueError, match="n % block_size"):
+        T.sort_kv(x, x, strategy="composed", block_size=128)
+    with pytest.raises(ValueError, match="n % block_size"):
+        J.sort(jnp.asarray(np.arange(64, dtype=np.uint32)),
+               strategy="composed")
     with pytest.raises(ValueError):
         T.sort(x, strategy="radix")
     with pytest.raises(TypeError):
         T.sort(torch.arange(8, dtype=torch.int16))
+
+
+COMPOSED_KINDS = {
+    "uniform": lambda rng, n: rng.integers(0, 2**32, n, dtype=np.uint64)
+    .astype(np.uint32),
+    "all_equal": lambda rng, n: np.full(n, 0xDEADBEEF, np.uint32),
+    "sorted": lambda rng, n: np.sort(rng.integers(0, 2**32, n,
+                                                  dtype=np.uint64)
+                                     .astype(np.uint32)),
+    "reverse": lambda rng, n: np.sort(rng.integers(0, 2**32, n,
+                                                   dtype=np.uint64)
+                                      .astype(np.uint32))[::-1].copy(),
+    "few_uniques": lambda rng, n: rng.integers(0, 4, n, dtype=np.uint32),
+    "extremes": lambda rng, n: rng.choice(
+        np.array([0, 1, 0xFFFFFFFE, 0xFFFFFFFF], np.uint32), n),
+}
+
+
+@pytest.mark.parametrize("kind", COMPOSED_KINDS)
+def test_composed_sort_matches_jax(kind):
+    # the JAX suite's composed geometry (tests/test_ops.py:27-34)
+    keys = COMPOSED_KINDS[kind](np.random.default_rng(39), 1 << 13)
+    want = np.asarray(J.sort(jnp.asarray(keys), strategy="composed",
+                             block_size=1 << 10))
+    got = T.sort(from_numpy(keys), strategy="composed", block_size=1 << 10)
+    np.testing.assert_array_equal(to_numpy(got), want)
+    np.testing.assert_array_equal(want, np.sort(keys))
+
+
+@pytest.mark.parametrize("r", [1, 2, 4, 8])
+def test_composed_sort_digit_widths_match_jax(r):
+    keys = COMPOSED_KINDS["uniform"](np.random.default_rng(40), 1 << 12)
+    want = np.asarray(J.sort(jnp.asarray(keys), strategy="composed", r=r,
+                             block_size=1 << 9))
+    got = T.sort(from_numpy(keys), strategy="composed", r=r,
+                 block_size=1 << 9)
+    np.testing.assert_array_equal(to_numpy(got), want)
+
+
+@pytest.mark.parametrize("payload", ["u32", "f32", "tuple"])
+def test_composed_sort_kv_stable_matches_jax(payload):
+    rng = np.random.default_rng(41)
+    n = 1 << 12
+    keys = rng.integers(0, 50, n, dtype=np.uint32)     # heavy duplicates
+    pos = np.arange(n, dtype=np.uint32)
+    f = rng.standard_normal(n).astype(np.float32)
+    f[:3] = [np.nan, -0.0, np.inf]                     # bits must survive
+    vals = {"u32": [pos], "f32": [f], "tuple": [pos, f]}[payload]
+    jv = tuple(jnp.asarray(v) for v in vals)
+    tv = tuple(from_numpy(v) for v in vals)
+    wk, wv = J.sort_kv(jnp.asarray(keys), jv if payload == "tuple" else jv[0],
+                       strategy="composed", block_size=1 << 9)
+    gk, gv = T.sort_kv(from_numpy(keys), tv if payload == "tuple" else tv[0],
+                       strategy="composed", block_size=1 << 9)
+    wv, gv = (wv, gv) if payload == "tuple" else ((wv,), (gv,))
+    assert isinstance(gv, tuple) and len(gv) == len(vals)
+    np.testing.assert_array_equal(to_numpy(gk), np.asarray(wk))
+    perm = np.argsort(keys, kind="stable")
+    for g, w, v in zip(gv, wv, vals, strict=True):
+        np.testing.assert_array_equal(to_numpy(g).view(np.uint32),
+                                      np.asarray(w).view(np.uint32))
+        np.testing.assert_array_equal(to_numpy(g).view(np.uint32),
+                                      v[perm].view(np.uint32))
 
 
 def test_entry_step_sorts_stably():
@@ -203,7 +269,12 @@ def test_port_imports_no_jax():
     # conftest imports jax in this process, so check in a fresh one
     code = ("import sys; import lsdradixsort_tpu_torch.ops.sort, "
             "lsdradixsort_tpu_torch.entry, "
-            "lsdradixsort_tpu_torch.bench.flagship; "
+            "lsdradixsort_tpu_torch.bench.flagship, "
+            "lsdradixsort_tpu_torch.kernels.histogram, "
+            "lsdradixsort_tpu_torch.kernels.scan, "
+            "lsdradixsort_tpu_torch.kernels.transpose, "
+            "lsdradixsort_tpu_torch.core.digits, "
+            "lsdradixsort_tpu_torch.core.roofline; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'lsdradixsort_tpu.')) or "
             "m == 'lsdradixsort_tpu']; print(bad); sys.exit(1 if bad else 0)")
