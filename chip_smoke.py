@@ -18,7 +18,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    (8,0), (8,3) and blocks 128, 1024, 2^13, 2^17, and digit_histogram.
    Then the scans at 2^22, 100000 and 131712 words of full-range u32
    (wraparound) and of i32, block_prefix_sums at blocks 128, 512 and
-   2^13, and transpose_tiled at (128, 256) and (16384, 256).
+   2^13, and transpose_tiled at (128, 256) and (16384, 256). Then the
+   query kernels: compaction of 1-4 streams and the fill-forward under
+   masks of density 0, 0.01, 0.25 and 1 and one from each key family
+   (a compaction only on its defined first count rows), the fill-forward
+   at a ragged n, and probes (semi and not) of a 1024-key table in shared
+   memory, a 50,000-key table past it, and one with duplicate keys. Then
+   the query entry points phase 3 does not run (bench/query.py
+   entry_point_ops: NOT IN, the vmem fallbacks past a chain, lookups in
+   every engine, 64-bit keys, MIN/MAX/COUNT, hash_join_multi's options,
+   top_k's fast path), each against its plain reference, with the kernel
+   calls that show the path it took.
 3. The main paths end to end. Merge: merge_sort_keys at 2^27 and
    2^27 - 12345 rows against torch.sort; merge_sort_with_ranks at 2^27
    with the stability check; the entry() step (sort_kv at 2^20) with u32
@@ -27,8 +37,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    torch.sort; sort_kv at 2^27, r = 8, with positions (stable); sort_kv
    with an f32 payload and sort of i32/f32 keys, descending, at 2^20;
    and the reference's flagship, 2^30 keys, r = 4, block 512, with its
-   peak device memory.
-4. Launch counters: every kernel launched during phase 3, and no plain
+   peak device memory. Query (a path of its own, with its own counts):
+   every op of bench/query.py at n = 10^8, nb = 10^7 (BASELINE configs 3
+   and 4), both engines where there are two, each checked against an
+   independent plain reference, with its peak device memory and the
+   kernel launches of one query.
+4. Launch counters: every kernel launched on its path in phase 3 (the
+   sort kernels during the sorts, the three query kernels during the
+   queries; each count set to 0 just before its path), and no plain
    version ran.
 5. Each kernel against its plain version at the main paths' shapes, bit
    for bit, then both timed (CUDA events, median of 5 after a warm-up),
@@ -39,7 +55,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    and of 2^27 all-equal keys at r = 8 and 1; exclusive_scan of each r's
    digit-major histogram and of 2^27 words;
    exclusive_scan_hierarchical and block_prefix_sums at 2^27;
-   transpose_tiled at (16384, 256) and (8192, 16384). Then the sorts:
+   transpose_tiled at (16384, 256) and (8192, 16384); the compaction of
+   filter_kv (2 streams) and of the vmem hash_join (3 streams) at 10^8
+   rows, the fill-forward of hash_join's 1.1 * 10^8 sorted rows, the
+   probe of the vmem join's 1024-key table by 10^8 keys (and semi, beside
+   torch.isin), and the 50,000-key table's probe; their bounds count the
+   bytes the function needs from that run's data (a compaction's selected
+   rows, the fill-forward's flagged rows). Then the sorts:
    merge keys and kv, torch.sort, the composed sort at each r and kv at
    r = 8 (2^27), and at 2^30 the composed r = 4 sort beside
    merge_sort_keys, the scan and the r = 1 and r = 8 histograms beside
@@ -74,7 +96,11 @@ def main() -> int:
                                                      random_keys_bounded)
     from lsdradixsort_tpu_torch.core.timing import card_label, time_fn
     from lsdradixsort_tpu_torch.entry import entry
+    from lsdradixsort_tpu_torch.bench import query as Q
     from lsdradixsort_tpu_torch.kernels import _build
+    from lsdradixsort_tpu_torch.kernels import compaction as CP
+    from lsdradixsort_tpu_torch.kernels import fill_forward as FF
+    from lsdradixsort_tpu_torch.kernels import hash_table as HT
     from lsdradixsort_tpu_torch.kernels import histogram as H
     from lsdradixsort_tpu_torch.kernels import merge as M
     from lsdradixsort_tpu_torch.kernels import scan as SC
@@ -137,34 +163,40 @@ def main() -> int:
                               "sort_tiles_multi", "merge_pass_multi",
                               "block_digit_histograms", "exclusive_scan",
                               "exclusive_scan_hierarchical",
-                              "block_prefix_sums", "transpose_tiled")}
+                              "block_prefix_sums", "transpose_tiled",
+                              "compact_stream_multi", "fill_forward_last",
+                              "probe_table")}
 
     def compare(kernel, label, got, want):
         for i, (g, w) in enumerate(zip(got, want, strict=True)):
             g, w = g.reshape(-1), w.reshape(-1)
-            err = int((u32_to_i64(g) - u32_to_i64(w)).abs().max())
+            err = (int((u32_to_i64(g) - u32_to_i64(w)).abs().max())
+                   if g.numel() else 0)
             max_err[kernel] = max(max_err[kernel], err)
             check_keys(g, w, f"{kernel} {label} stream {i}")
 
-    def streams_of(out):
-        """A wrapper's output as its list of streams, the key first."""
-        if isinstance(out, torch.Tensor):
-            return [out]
-        k, vs = out
-        return [k, *vs] if isinstance(vs, list) else [k, vs]
+    # a wrapper's output as its list of streams, named at every call: one
+    # tensor, a tuple or list of tensors, or a key and a list of values
+    def one(t):
+        return [t]
+
+    def key_and_list(out):
+        key, vals = out
+        return [key, *vals]
 
     iota = iota_u32(n2, dev)
     pay = random_keys(n2, 2, dev)
     for fam, x in families(n2, 1).items():
-        compare("sort_tiles", fam, streams_of(TS.sort_tiles(x, tile_rows)),
-                streams_of(TS.sort_tiles_plain(x, tile_rows)))
+        compare("sort_tiles", fam, one(TS.sort_tiles(x, tile_rows)),
+                one(TS.sort_tiles_plain(x, tile_rows)))
         compare("sort_tiles_kv", fam,
-                streams_of(TS.sort_tiles_kv(x, iota, tile_rows)),
-                streams_of(TS.sort_tiles_kv_plain(x, iota, tile_rows)))
+                list(TS.sort_tiles_kv(x, iota, tile_rows)),
+                list(TS.sort_tiles_kv_plain(x, iota, tile_rows)))
         for vals in ([pay], [iota, pay]):
             compare("sort_tiles_multi", f"{fam} streams={1 + len(vals)}",
-                    streams_of(TS.sort_tiles_multi(x, vals, tile_rows)),
-                    streams_of(TS.sort_tiles_multi_plain(x, vals, tile_rows)))
+                    key_and_list(TS.sort_tiles_multi(x, vals, tile_rows)),
+                    key_and_list(TS.sort_tiles_multi_plain(x, vals,
+                                                           tile_rows)))
         for run_log2 in (15, 18):
             rr = (1 << run_log2) // TS.LANES
             k1 = TS.sort_tiles_plain(x, rr)
@@ -173,27 +205,28 @@ def main() -> int:
             for streams in ([k1], [k2, v2], [k3, *v3]):
                 compare("merge_pass_multi",
                         f"{fam} run=2^{run_log2} streams={len(streams)}",
-                        streams_of(M.merge_pass_multi(
+                        key_and_list(M.merge_pass_multi(
                             streams[0], streams[1:], 1 << run_log2)),
-                        streams_of(M.merge_pass_multi_plain(
+                        key_and_list(M.merge_pass_multi_plain(
                             streams[0], streams[1:], 1 << run_log2)))
     # signed-val tiebreak of sort_tiles_kv: tied keys, vals across 2^31
     x = random_keys_bounded(n2, 0, 4, 3, dev)
     vals = random_keys(n2, 4, dev)
     compare("sort_tiles_kv", "signed tiebreak",
-            streams_of(TS.sort_tiles_kv(x, vals, tile_rows)),
-            streams_of(TS.sort_tiles_kv_plain(x, vals, tile_rows)))
+            list(TS.sort_tiles_kv(x, vals, tile_rows)),
+            list(TS.sort_tiles_kv_plain(x, vals, tile_rows)))
     # compared payload with ties and a rider; a group of only 4 runs
     v0 = random_keys_bounded(n2, 0, 3, 5, dev)
     compare("sort_tiles_multi", "tied val0 + rider",
-            streams_of(TS.sort_tiles_multi(x, [v0, vals], tile_rows)),
-            streams_of(TS.sort_tiles_multi_plain(x, [v0, vals], tile_rows)))
+            key_and_list(TS.sort_tiles_multi(x, [v0, vals], tile_rows)),
+            key_and_list(TS.sort_tiles_multi_plain(x, [v0, vals],
+                                                   tile_rows)))
     n4 = 4 << 15
     k4, v4 = TS.sort_tiles_multi_plain(x[:n4], [v0[:n4], vals[:n4]],
                                        tile_rows)
     compare("merge_pass_multi", "4-run group",
-            streams_of(M.merge_pass_multi(k4, v4, 1 << 15)),
-            streams_of(M.merge_pass_multi_plain(k4, v4, 1 << 15)))
+            key_and_list(M.merge_pass_multi(k4, v4, 1 << 15)),
+            key_and_list(M.merge_pass_multi_plain(k4, v4, 1 << 15)))
     # digit histograms, each family at every (r, group) and block
     for fam, x in families(n2, 1).items():
         for r, group in ((1, 0), (2, 5), (4, 3), (8, 0), (8, 3)):
@@ -230,18 +263,94 @@ def main() -> int:
         a = random_keys(shape[0] * shape[1], 10, dev, dtype=dt).view(shape)
         compare("transpose_tiled", f"{shape} {dt}",
                 [TR.transpose_tiled(a, tile)], [TR.transpose_plain(a)])
+    # the query kernels: compaction of 1-4 streams and fill-forward under
+    # masks of every density and a mask from each key family (only the
+    # first count rows of a compaction are defined); probes of a table in
+    # shared memory (1024 keys), one past it (50,000 keys, 452 rows) and
+    # one with duplicate keys, semi and not
+    gen = torch.Generator(device=dev).manual_seed(13)
+    masks = {f"p={p}": torch.rand(n2, generator=gen, device=dev) < p
+             for p in (0.0, 0.01, 0.25, 1.0)}
+    for fam, x in families(n2, 1).items():
+        for mname, m in {**masks,
+                         "key bit 0": (x.view(torch.int32) & 1) == 1}.items():
+            cnt = int(m.sum())
+            for streams in ([x], [x, iota], [x, iota, pay],
+                            [x, iota, pay, vals]):
+                compare("compact_stream_multi",
+                        f"{fam} {mname} streams={len(streams)}",
+                        [o[:cnt] for o in CP.compact_stream_multi(m, streams)],
+                        [o[:cnt] for o in CP.compact_stream_multi_plain(
+                            m, streams)])
+            compare("fill_forward_last", f"{fam} {mname}",
+                    list(FF.fill_forward_last(m, x, pay)),
+                    list(FF.fill_forward_last_plain(m, x, pay)))
+    ragged = n2 - 12345
+    compare("fill_forward_last", f"n={ragged}",
+            list(FF.fill_forward_last(masks["p=0.01"][:ragged],
+                                      pay[:ragged], iota[:ragged])),
+            list(FF.fill_forward_last_plain(masks["p=0.01"][:ragged],
+                                            pay[:ragged], iota[:ragged])))
+    small_keys = i64_to_u32(torch.randperm(1 << 12, generator=gen,
+                                           device=dev)[:1024])
+    wide_keys = i64_to_u32(torch.randperm(1 << 22, generator=gen,
+                                          device=dev)[:50_000])
+    dup_keys = random_keys_bounded(1024, 0, 300, 14, dev)
+    tables = {
+        "1024 keys": (HT.build_table(small_keys, pay[:1024],
+                                     HT.plan_rows(1024)),
+                      random_keys_bounded(n2, 0, 1 << 12, 15, dev)),
+        "50000 keys": (HT.build_table(wide_keys, pay[:50_000],
+                                      HT.plan_rows(50_000)),
+                       random_keys_bounded(n2, 0, 1 << 22, 16, dev)),
+        "duplicate keys": (HT.build_table(dup_keys, pay[:1024], 64),
+                           random_keys_bounded(n2, 0, 400, 17, dev)),
+    }
+    for tname, (table, probes) in tables.items():
+        for semi in (False, True):
+            compare("probe_table", f"{tname} semi={semi}",
+                    list(HT.probe_table(*table[:3], probes, semi=semi)),
+                    list(HT.probe_table_plain(*table[:3], probes,
+                                              semi=semi)))
+    for fam, x in families(n2, 1).items():
+        compare("probe_table", f"{fam} probes of the 1024-key table",
+                list(HT.probe_table(*tables["1024 keys"][0][:3], x)),
+                list(HT.probe_table_plain(*tables["1024 keys"][0][:3], x)))
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    print(f"phase 2: 1024-key table rows {tables['1024 keys'][0][0].shape[0]}"
+          f", 50000-key table rows {tables['50000 keys'][0][0].shape[0]}; "
+          f"shared memory a block can opt into: {optin} bytes")
+    del masks, tables
     torch.cuda.synchronize()
     print(f"phase 2: kernels bit exact against plain versions "
           f"(6 key families, n=2^22, tile 2^15; "
           f"max_abs_err {max_err})")
+    # the query entry points and paths that phase 3 does not run, at
+    # n = 2^22, each against its plain reference and, where the path is
+    # the point, with the kernel calls it must make (bench/query.py
+    # entry_point_ops)
+    edata = Q.make_data(dev, n2, n2 >> 4)
+    for op in Q.entry_point_ops(edata):
+        Q.run_once(op, check=True)
+        print(f"phase 2: {Q.label(op)} n={n2}: verified"
+              + (f" (kernel calls {op.calls})" if op.calls else ""))
+    del edata
     phase_done(2)
 
-    # ---- 3. main path end to end -------------------------------------------
-    counters = [(mod.LAUNCHES, mod.PLAIN_CALLS) for mod in (TS, M, H, SC, TR)]
-    for pair in counters:
-        for counts in pair:
-            for k in counts:
-                counts[k] = 0
+    # ---- 3. main paths end to end -----------------------------------------
+    modules = (TS, M, H, SC, TR, CP, FF, HT)
+
+    def reset_counts():
+        for mod in modules:
+            for counts in (mod.LAUNCHES, mod.PLAIN_CALLS):
+                for k in counts:
+                    counts[k] = 0
+
+    def read_counts():
+        return ({k: v for mod in modules for k, v in mod.LAUNCHES.items()},
+                {k: v for mod in modules for k, v in mod.PLAIN_CALLS.items()})
+
+    reset_counts()
     n = 1 << 27
     keys = random_keys(n, 0, dev)
     want, want_perm = torch_sort_u32(keys)
@@ -310,18 +419,41 @@ def main() -> int:
           f"descending 2^20, sort 2^30 r=4 block 512: verified; 2^30 peak "
           f"device memory {peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB "
           f"held before the sort)")
+    sort_launches, sort_plain = read_counts()
+
+    # the query path: every op of bench/query.py at n = 10^8, nb = 10^7,
+    # both engines where there are two, each checked against an
+    # independent plain reference, with its peak device memory and the
+    # kernel launches of one query
+    del want, want_perm
+    qdata = Q.make_data(dev)
+    reset_counts()
+    for op in Q.query_ops(qdata):
+        before = read_counts()[0]
+        peak_q, held_q = Q.run_once(op, check=True)
+        used = {k: v - before[k] for k, v in read_counts()[0].items()
+                if v != before[k]}
+        print(f"phase 3: {Q.label(op)} n={qdata['n']} nb={qdata['nb']}: "
+              f"verified; peak device memory {peak_q:.2f} GiB "
+              f"({held_q:.2f} GiB held before); launches {used}")
+    query_launches, query_plain = read_counts()
     phase_done(3)
 
     # ---- 4. launch counters -----------------------------------------------
-    launches = {k: v for pair in counters for k, v in pair[0].items()}
-    plain = {k: v for pair in counters for k, v in pair[1].items()}
-    print(f"phase 4: kernel launches {launches}; plain calls {plain}")
+    query_kernels = ("compact_stream_multi", "fill_forward_last",
+                     "probe_table")
+    launches = {k: query_launches[k] if k in query_kernels
+                else sort_launches[k] for k in sort_launches}
+    print(f"phase 4: sort paths: kernel launches {sort_launches}; plain "
+          f"calls {sort_plain}")
+    print(f"phase 4: query path: kernel launches {query_launches}; plain "
+          f"calls {query_plain}")
     idle = [k for k, v in launches.items() if v == 0]
     if idle:
-        raise AssertionError(f"kernels never launched on the main path: "
+        raise AssertionError(f"kernels never launched on their main path: "
                              f"{idle}")
-    if any(plain.values()):
-        raise AssertionError(f"plain versions ran on the main path: {plain}")
+    if any(sort_plain.values()) or any(query_plain.values()):
+        raise AssertionError("plain versions ran on a main path")
     phase_done(4)
 
     # ---- 5. kernels at the main path's shapes; times ---------------------
@@ -346,10 +478,14 @@ def main() -> int:
     pay = random_keys(n, 2, dev)
     rows = {}
 
-    def check_and_time(kname, what, fn, plain_fn, args, nbytes,
-                       library=None, elems=n):
-        got = streams_of(fn(*args))
-        compare(kname, f"{what} n={elems}", got, streams_of(plain_fn(*args)))
+    def check_and_time(kname, what, fn, plain_fn, args, nbytes, split,
+                       library=None, elems=n, defined=None):
+        """split: the output as its list of streams (one, list or
+        key_and_list); defined: compare only that many first rows of each
+        output (a compaction's defined prefix)."""
+        got = split(fn(*args))
+        compare(kname, f"{what} n={elems}", [g[:defined] for g in got],
+                [w[:defined] for w in split(plain_fn(*args))])
         tk = time_fn(fn, *args)
         tp = time_fn(plain_fn, *args)
         tl = time_fn(library) if library is not None else None
@@ -380,8 +516,10 @@ def main() -> int:
     for kname, what, fn, plain_fn, args, library in chains:
         nbytes = 2 * 4 * n * (len(args) - 1 if kname != "sort_tiles_multi"
                               else 3)
-        streams = check_and_time(kname, what, fn, plain_fn, args, nbytes,
-                                 library)
+        streams = check_and_time(
+            kname, what, fn, plain_fn, args, nbytes,
+            {"sort_tiles": one, "sort_tiles_kv": list,
+             "sort_tiles_multi": key_and_list}[kname], library)
         run = 1 << 15
         while run < n:
             x0, group = streams[0], min(M.KWAY * run, n)
@@ -389,7 +527,7 @@ def main() -> int:
                 "merge_pass_multi",
                 f"{what} run=2^{run.bit_length() - 1}", M.merge_pass_multi,
                 M.merge_pass_multi_plain, (streams[0], streams[1:], run),
-                2 * 4 * n * len(streams),
+                2 * 4 * n * len(streams), key_and_list,
                 (lambda x0=x0, group=group: torch.sort(
                     flipped(x0).view(-1, group), dim=1))
                 if len(streams) == 1 else None)
@@ -418,7 +556,9 @@ def main() -> int:
              (keys, 1 << 13), 8 * n + 4 * (n >> 13),
              lambda: torch.cumsum(keys.view(torch.int32).view(-1, 1 << 13),
                                   1, dtype=torch.int32))):
-        check_and_time(kname, what, fn, plain_fn, args, nbytes, library)
+        check_and_time(kname, what, fn, plain_fn, args, nbytes,
+                       one if kname == "exclusive_scan_hierarchical"
+                       else list, library)
 
     # the composed path's kernels at its shapes (2^27 keys, block 2^13)
     blk = 1 << 13
@@ -428,30 +568,30 @@ def main() -> int:
         hist = check_and_time(
             "block_digit_histograms", f"r={r} group=0 block=2^13",
             H.block_digit_histograms, H.block_digit_histograms_plain,
-            (keys, r, 0, blk), 4 * n + 4 * nb * bins)[0]
+            (keys, r, 0, blk), 4 * n + 4 * nb * bins, one)[0]
         digit_major = TR.transpose_any(hist).view(-1)
         check_and_time(
             "exclusive_scan", f"digit-major histogram r={r}",
             SC.exclusive_scan, SC.exclusive_scan_plain, (digit_major,),
-            8 * nb * bins,
+            8 * nb * bins, one,
             lambda x=digit_major: torch.cumsum(x.view(torch.int32), 0,
                                                dtype=torch.int32),
             elems=nb * bins)
         check_and_time(
             "block_prefix_sums", f"histogram rows r={r} (block 2^{r})",
             SC.block_scans, SC._block_scans_plain, (hist.view(-1), bins),
-            8 * nb * bins + 4 * nb, elems=nb * bins)
+            8 * nb * bins + 4 * nb, list, elems=nb * bins)
         totals = tile_sums(digit_major)
         check_and_time(
             "exclusive_scan_hierarchical",
             f"tile totals of the r={r} digit-major scan",
             SC.exclusive_scan_hierarchical,
             SC.exclusive_scan_hierarchical_plain, (totals,),
-            8 * totals.shape[0], elems=totals.shape[0])
+            8 * totals.shape[0], one, elems=totals.shape[0])
         check_and_time(
             "transpose_tiled", f"histogram r={r} ({nb}, {bins})",
             TR.transpose_any, TR.transpose_plain, (hist,), 8 * nb * bins,
-            lambda h=hist: h.t().contiguous(), elems=nb * bins)
+            one, lambda h=hist: h.t().contiguous(), elems=nb * bins)
     # all-equal keys: every key of a block lands in one counter
     same = torch.full((n,), 0x5EEDBEEF, dtype=torch.int32,
                       device=dev).view(torch.uint32)
@@ -459,21 +599,94 @@ def main() -> int:
         check_and_time(
             "block_digit_histograms", f"all-equal keys r={r} block=2^13",
             H.block_digit_histograms, H.block_digit_histograms_plain,
-            (same, r, 0, blk), 4 * n + 4 * nb * (1 << r))
+            (same, r, 0, blk), 4 * n + 4 * nb * (1 << r), one)
     del same
     check_and_time("exclusive_scan", "2^27 words", SC.exclusive_scan,
-                   SC.exclusive_scan_plain, (keys,), 8 * n,
+                   SC.exclusive_scan_plain, (keys,), 8 * n, one,
                    lambda: torch.cumsum(keys.view(torch.int32), 0,
                                         dtype=torch.int32))
     for shape in ((16384, 256), (8192, 16384)):
         a = random_keys(shape[0] * shape[1], 12, dev).view(shape)
         check_and_time("transpose_tiled", f"{shape}", TR.transpose_tiled,
                        lambda x, t: TR.transpose_plain(x), (a, 256),
-                       8 * a.numel(), lambda a=a: a.t().contiguous(),
+                       8 * a.numel(), one, lambda a=a: a.t().contiguous(),
                        elems=a.numel())
     del a
     print(f"phase 5: every composed-path kernel bit exact against its plain "
           f"version at n=2^27 (max_abs_err {max_err})")
+
+    # the query kernels at the query path's shapes (n = 10^8, nb = 10^7):
+    # filter_kv's compaction (2 streams; padded to a multiple of 2^15) and
+    # the vmem join's (3 streams), the fill-forward of hash_join's sorted
+    # build + probe rows, and the probe of the vmem join's 1024-key table
+    # (and, semi, of filter_in_set's), with the library call beside each
+    # where one exists (boolean indexing of one stream; isin for semi).
+    # A bound counts the bytes the function needs from this run's data:
+    # a compaction reads each mask byte and only the selected rows of its
+    # streams; the fill-forward reads each flag, key and val only at the
+    # flagged rows, and writes 12 bytes a row
+    qn, qnb = qdata["n"], qdata["nb"]
+    npad = -(-qn // CP.TILE) * CP.TILE
+
+    def padded(x):
+        return torch.cat([x.view(torch.int32), x.new_zeros(
+            npad - x.shape[0]).view(torch.int32)]).view(x.dtype)
+
+    qk = u32_to_i64(qdata["keys"])
+    sel = padded((qk >= Q.LO) & (qk < Q.HI))
+    del qk
+    cnt = int(sel.sum())
+    fstreams = [padded(qdata["keys"]), padded(qdata["vals"])]
+    check_and_time("compact_stream_multi", "filter_kv: 2 streams",
+                   CP.compact_stream_multi, CP.compact_stream_multi_plain,
+                   (sel, fstreams), npad + 2 * 8 * cnt, list,
+                   lambda: fstreams[0].view(torch.int32)[sel], npad, cnt)
+    small = HT.build_table(qdata["bkeys_s"], qdata["bvals_s"],
+                           HT.plan_rows(Q.SMALL_BUILD))
+    probes = qdata["pkeys_s"]
+    match, bval = check_and_time(
+        "probe_table", f"hash_join vmem: {Q.SMALL_BUILD}-key table, "
+        f"{small[0].shape[0]} rows", HT.probe_table, HT.probe_table_plain,
+        (*small[:3], probes), 12 * qn + 4 * small[0].numel() * 2 + 512,
+        list, elems=qn)
+    in_set = HT.build_table(qdata["bkeys_s"], qdata["bkeys_s"],
+                            HT.plan_rows(Q.SMALL_BUILD))
+    check_and_time(
+        "probe_table", f"filter_in_set: semi, {Q.SMALL_BUILD}-key set",
+        lambda *a: HT.probe_table(*a, semi=True),
+        lambda *a: HT.probe_table_plain(*a, semi=True),
+        (*in_set[:3], probes), 12 * qn + 4 * in_set[0].numel() + 512,
+        list, lambda: torch.isin(u32_to_i64(probes),
+                           u32_to_i64(qdata["bkeys_s"])), elems=qn)
+    jsel = padded(match.view(torch.int32) == 1)
+    jcnt = int(jsel.sum())
+    jstreams = [padded(probes), fstreams[1], padded(bval)]
+    del match, bval
+    check_and_time("compact_stream_multi", "hash_join vmem: 3 streams",
+                   CP.compact_stream_multi, CP.compact_stream_multi_plain,
+                   (jsel, jstreams), npad + 2 * 12 * jcnt, list,
+                   lambda: jstreams[0].view(torch.int32)[jsel], npad, jcnt)
+    del sel, fstreams, jsel, jstreams
+    jkeys = torch.cat([qdata["bkeys"], qdata["pkeys"]])
+    jperm = torch.sort(u32_to_i64(jkeys), stable=True).indices
+    jn = jkeys.shape[0]
+    ff_args = (jperm < qnb, jkeys.view(torch.int32)[jperm].view(torch.uint32),
+               torch.cat([qdata["bvals"], qdata["vals"]]).view(torch.int32)
+               [jperm].view(torch.uint32))
+    del jkeys, jperm
+    flagged = int(ff_args[0].sum())
+    check_and_time("fill_forward_last", "hash_join: sorted build + probe rows",
+                   FF.fill_forward_last, FF.fill_forward_last_plain, ff_args,
+                   jn + 8 * flagged + 12 * jn, list, elems=jn)
+    del ff_args
+    wide = HT.build_table(wide_keys, pay[:50_000], HT.plan_rows(50_000))
+    wide_probes = random_keys_bounded(n2, 0, 1 << 22, 16, dev)
+    tk_ = time_fn(HT.probe_table, *wide[:3], wide_probes)
+    print(f"time probe_table 50000-key table ({wide[0].shape[0]} rows, past "
+          f"shared memory), 2^22 probes: {tk_.ms:.3f} ms ({card})")
+    del wide, wide_probes
+    print(f"phase 5: every query-path kernel bit exact against its plain "
+          f"version at n={qn} (max_abs_err {max_err})")
 
     # the sorts: composed at each r and kv, then the reference's 2^30
     for r in (1, 2, 4, 8):
@@ -521,6 +734,13 @@ def main() -> int:
                               "lsdradixsort_tpu/kernels/scan.py:232"),
         "transpose_tiled": ("lsdradixsort_tpu_torch/csrc/transpose.cu",
                             "lsdradixsort_tpu/kernels/transpose.py:48"),
+        "compact_stream_multi": (
+            "lsdradixsort_tpu_torch/csrc/compaction.cu",
+            "lsdradixsort_tpu/kernels/compaction.py:162"),
+        "fill_forward_last": ("lsdradixsort_tpu_torch/csrc/fill_forward.cu",
+                              "lsdradixsort_tpu/kernels/fill_forward.py:114"),
+        "probe_table": ("lsdradixsort_tpu_torch/csrc/hash_table.cu",
+                        "lsdradixsort_tpu/kernels/hash_table.py:135"),
     }
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

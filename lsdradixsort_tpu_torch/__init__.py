@@ -12,10 +12,13 @@ Layer map:
   core/      key codecs, digit math, numpy <-> tensor conversion, data
              generation, CUDA-event timing, the roofline
   kernels/   tile sort, 8-way merge pass, digit histogram, exclusive
-             scans, tiled transpose (CUDA + plain versions)
-  ops/       the sort operators (merge_sort_*, sort, sort_kv, ...)
+             scans, tiled transpose, stream compaction, fill-forward,
+             hash-table probe (CUDA + plain versions)
+  ops/       the sort operators (merge_sort_*, sort, sort_kv, ...) and
+             the query operators (filter, group by, join, top-k, unique)
   utils/     bit-exact verification helpers
-  bench/     the flagship benchmark (bench/flagship.py)
+  bench/     the flagship benchmark (bench/flagship.py) and the query
+             benchmark (bench/query.py)
 """
 from lsdradixsort_tpu_torch.kernels.histogram import (block_digit_histograms,
                                                       digit_histogram)
@@ -26,10 +29,20 @@ from lsdradixsort_tpu_torch.kernels.scan import (block_prefix_sums,
 from lsdradixsort_tpu_torch.kernels.tile_sort import (sort_tiles,
                                                       sort_tiles_kv,
                                                       sort_tiles_multi)
+from lsdradixsort_tpu_torch.ops.aggregate import (filtered_group_by_sum,
+                                                  group_by_aggregate,
+                                                  group_by_sum)
+from lsdradixsort_tpu_torch.ops.filter import (compact, filter_in_set,
+                                               filter_keys, filter_kv,
+                                               filter_not_in_set)
+from lsdradixsort_tpu_torch.ops.join import (hash_join, hash_join64,
+                                             hash_join_multi, probe_lookup,
+                                             probe_lookup64)
 from lsdradixsort_tpu_torch.ops.sort import (argsort, merge_sort_keys,
                                              merge_sort_multi,
                                              merge_sort_with_ranks, sort,
                                              sort_kv, sort_with_ranks)
+from lsdradixsort_tpu_torch.ops.topk import top_k, unique
 
 __all__ = [
     "sort", "sort_kv", "argsort", "sort_with_ranks",
@@ -38,4 +51,8 @@ __all__ = [
     "merge_pass", "merge_pass_kv", "merge_pass_multi",
     "digit_histogram", "block_digit_histograms",
     "exclusive_scan", "block_prefix_sums",
+    "compact", "filter_keys", "filter_kv", "filter_in_set",
+    "filter_not_in_set", "group_by_sum", "group_by_aggregate",
+    "filtered_group_by_sum", "hash_join", "hash_join_multi", "probe_lookup",
+    "probe_lookup64", "hash_join64", "top_k", "unique",
 ]

@@ -54,6 +54,25 @@ def order_key(words, flip1: bool = False) -> torch.Tensor:
     return (key - _SIGN) * (1 << 32) + val
 
 
+def wrap_u32(t: torch.Tensor) -> torch.Tensor:
+    """int64 values mod 2^32 as uint32: the wraparound of u32 arithmetic
+    done on `u32_to_i64` values."""
+    return i64_to_u32(t & 0xFFFFFFFF)
+
+
+def stable_order(words) -> torch.Tensor:
+    """Stable ascending order (int64 positions) of u32 rows compared on
+    one or two words."""
+    return torch.sort(order_key(words), stable=True).indices
+
+
+def gather(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """x[perm]; a 32-bit tensor is carried as its int32 bits."""
+    if x.element_size() == 4:
+        return x.view(torch.int32)[perm].view(x.dtype)
+    return x[perm]
+
+
 def take_rows(s: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     """Gather u32 stream `s`, viewed as perm's (rows, width), by perm."""
     rows, width = perm.shape

@@ -1,3 +1,9 @@
+from lsdradixsort_tpu_torch.kernels.compaction import (  # noqa: F401
+    compact_stream, compact_stream_multi)
+from lsdradixsort_tpu_torch.kernels.fill_forward import (  # noqa: F401
+    fill_forward_last)
+from lsdradixsort_tpu_torch.kernels.hash_table import (  # noqa: F401
+    build_table, lane_of, plan_rows, probe_table)
 from lsdradixsort_tpu_torch.kernels.histogram import (  # noqa: F401
     block_digit_histograms, digit_histogram)
 from lsdradixsort_tpu_torch.kernels.merge import (merge_pass,  # noqa: F401

@@ -43,8 +43,9 @@ from __future__ import annotations
 import torch
 
 from lsdradixsort_tpu_torch.core import keycodec
-from lsdradixsort_tpu_torch.core.convert import i64_to_u32, iota_u32, \
-    order_key, u32_to_i64
+from lsdradixsort_tpu_torch.core.convert import (gather, i64_to_u32,
+                                                 iota_u32, stable_order,
+                                                 u32_to_i64)
 from lsdradixsort_tpu_torch.core.digits import get_digit, num_digit_groups
 from lsdradixsort_tpu_torch.kernels.histogram import block_digit_histograms
 from lsdradixsort_tpu_torch.kernels.merge import (KWAY, merge_pass,
@@ -72,19 +73,6 @@ def _pad(x: torch.Tensor, npad: int) -> torch.Tensor:
     fill = torch.full((npad - x.shape[0],), -1, dtype=torch.int32,
                       device=x.device)
     return torch.cat([x.view(torch.int32), fill]).view(torch.uint32)
-
-
-def _gather(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """x[perm] for a 32-bit tensor, carried as int32 bits."""
-    if x.element_size() == 4:
-        return x.view(torch.int32)[perm].view(x.dtype)
-    return x[perm]
-
-
-def _stable_order(codes) -> torch.Tensor:
-    """Stable ascending order of u32 code rows compared on one or two
-    words (int64 positions)."""
-    return torch.sort(order_key(codes), stable=True).indices
 
 
 def merge_sort_keys(keys: torch.Tensor, tile_log2: int = 15,
@@ -144,8 +132,8 @@ def merge_sort_multi(keys: torch.Tensor, values, tile_log2: int = 15,
         collide = ((keys.view(torch.int32) == -1)
                    & (values[0].view(torch.int32) == -1)).any()
         if bool(collide):
-            perm = _stable_order([keys, values[0]])
-            return _gather(keys, perm), [_gather(v, perm) for v in values]
+            perm = stable_order([keys, values[0]])
+            return gather(keys, perm), [gather(v, perm) for v in values]
     return _merge_sort_multi(keys, values, tile_log2)
 
 
@@ -207,8 +195,8 @@ def sort_kv(keys: torch.Tensor, values, strategy: str = "merge", r: int = 8,
                                      tile_log2)
         back = [o.view(v.dtype) for o, v in zip(outs[1:], flat)]
     elif strategy == "xla":
-        perm = _stable_order([code])
-        sk, back = _gather(code, perm), [_gather(v, perm) for v in flat]
+        perm = stable_order([code])
+        sk, back = gather(code, perm), [gather(v, perm) for v in flat]
     elif strategy == "composed":
         sk, back = _composed_lsd_sort_kv(code, flat, r, block_size)
     else:
@@ -222,8 +210,8 @@ def sort_with_ranks(keys: torch.Tensor, descending: bool = False):
     """Sort keys, returning (sorted_keys, original_positions as uint32):
     the columnar primitive — use the positions to gather other columns."""
     code = keycodec.encode(keys, descending)
-    perm = _stable_order([code])
-    sk = keycodec.decode(_gather(code, perm), keys.dtype, descending)
+    perm = stable_order([code])
+    sk = keycodec.decode(gather(code, perm), keys.dtype, descending)
     return sk, perm.to(torch.int32).view(torch.uint32)
 
 

@@ -274,7 +274,12 @@ def test_port_imports_no_jax():
             "lsdradixsort_tpu_torch.kernels.scan, "
             "lsdradixsort_tpu_torch.kernels.transpose, "
             "lsdradixsort_tpu_torch.core.digits, "
-            "lsdradixsort_tpu_torch.core.roofline; "
+            "lsdradixsort_tpu_torch.core.roofline, "
+            "lsdradixsort_tpu_torch.kernels.compaction, "
+            "lsdradixsort_tpu_torch.kernels.fill_forward, "
+            "lsdradixsort_tpu_torch.kernels.hash_table, "
+            "lsdradixsort_tpu_torch.ops, "
+            "lsdradixsort_tpu_torch.bench.query; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'lsdradixsort_tpu.')) or "
             "m == 'lsdradixsort_tpu']; print(bad); sys.exit(1 if bad else 0)")
