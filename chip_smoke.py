@@ -14,8 +14,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    {0, 0xFFFFFFFF} keys at n = 2^22: tile sorts with 1, 2 and 3 streams
    at the 2^15-row tile; merge passes with 1, 2 and 3 streams at run_len
    2^15 and 2^18, and a 4-run group, plus the signed-val tiebreak of
-   sort_tiles_kv; digit histograms at (r, group) in (1,0), (2,5), (4,3),
-   (8,0), (8,3) and blocks 128, 1024, 2^13, 2^17, and digit_histogram.
+   sort_tiles_kv; the tile sort and merge passes at ncmp = 3 (hi, lo,
+   position), with and without a rider; merge_pass_runs on every range
+   of merge_runs_chunked (trimmed buffers) of each family cut into
+   S = 8, 4, 2 sorted runs at nranges = 1, 2, 4, of the skewed layout of
+   tests/test_bigsort.py:64-83 and of runs no longer than one chunk (the
+   JAX fallback's crash, ROADMAP Queue C 1), each merge also against a
+   stable torch.sort; digit histograms at (r, group) in (1,0), (2,5),
+   (4,3), (8,0), (8,3) and blocks 128, 1024, 2^13, 2^17, and
+   digit_histogram.
    Then the scans at 2^22, 100000 and 131712 words of full-range u32
    (wraparound) and of i32, block_prefix_sums at blocks 128, 512 and
    2^13, and transpose_tiled at (128, 256) and (16384, 256). Then the
@@ -28,7 +35,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    entry_point_ops: NOT IN, the vmem fallbacks past a chain, lookups in
    every engine, 64-bit keys, MIN/MAX/COUNT, hash_join_multi's options,
    top_k's fast path), each against its plain reference, with the kernel
-   calls that show the path it took.
+   calls that show the path it took; and the sort family's entry points
+   against plain references at 2^22: sort64_with_ranks for u64, i64 and
+   f64 keys, both directions, every strategy; sort_lex of 2, 3 and 7
+   columns of mixed dtypes and directions; window_rank, each method.
 3. The main paths end to end. Merge: merge_sort_keys at 2^27 and
    2^27 - 12345 rows against torch.sort; merge_sort_with_ranks at 2^27
    with the stability check; the entry() step (sort_kv at 2^20) with u32
@@ -37,21 +47,34 @@ Phases, in order; any failure exits non-zero and prints no result:
    torch.sort; sort_kv at 2^27, r = 8, with positions (stable); sort_kv
    with an f32 payload and sort of i32/f32 keys, descending, at 2^20;
    and the reference's flagship, 2^30 keys, r = 4, block 512, with its
-   peak device memory. Query (a path of its own, with its own counts):
-   every op of bench/query.py at n = 10^8, nb = 10^7 (BASELINE configs 3
-   and 4), both engines where there are two, each checked against an
-   independent plain reference, with its peak device memory and the
-   kernel launches of one query.
-4. Launch counters: every kernel launched on its path in phase 3 (the
-   sort kernels during the sorts, the three query kernels during the
-   queries; each count set to 0 just before its path), and no plain
-   version ran.
+   peak device memory. Chunked (a path of its own): sort_with_ranks_
+   chunked and sort_kv_chunked (u32 payload) of the same 2^30 keys as 8
+   segments of 2^27, chunk_log2 19, 2 ranges, each verified range by
+   range (bench/flagship.py `RankedRanges`) with its phase times and peak
+   memory. 64-bit: sort64_with_ranks of 2^27 (hi, lo) planes, each
+   strategy against a stable torch.sort of the int64 words (the "merge"
+   strategy, the ncmp = 3 chain, a path of its own). Query (a path of its
+   own): every op of bench/query.py at n = 10^8, nb = 10^7 (BASELINE
+   configs 3 and 4), both engines where there are two, each checked
+   against an independent plain reference, with its peak device memory
+   and the kernel launches of one query; then window_rank of those 10^8
+   rows (partition by the group keys, order by the filter keys), each
+   method against a plain reference (a path of its own).
+4. Launch counters: every kernel launched on its path in phase 3 (each
+   path's counts set to 0 just before it: the sort kernels during the
+   sorts, merge_pass_runs with the segment sorts' kernels during the
+   chunked sorts, the tile sort and merge pass during the 64-bit chain,
+   the three query kernels during the queries, the fill-forward with
+   the sort kernels during the window ranks), and no plain version ran.
 5. Each kernel against its plain version at the main paths' shapes, bit
    for bit, then both timed (CUDA events, median of 5 after a warm-up),
    with one PyTorch call computing the same function beside them where
    there is one: the tile sorts at n = 2^27 (1, 2 and 3 streams) and
    every merge pass of the chain (run 2^15, 2^18, 2^21, 2^24), each fed
-   the kernel's previous output; the histogram of 2^27 keys at each r,
+   the kernel's previous output, and the same at ncmp = 3 (hi, lo,
+   position); merge_pass_runs on each range of the 2^30 chunked pass
+   (2 streams, untrimmed runs), beside a stable torch.sort of the 2^30
+   int64 (key, position) words; the histogram of 2^27 keys at each r,
    and of 2^27 all-equal keys at r = 8 and 1; exclusive_scan of each r's
    digit-major histogram and of 2^27 words;
    exclusive_scan_hierarchical and block_prefix_sums at 2^27;
@@ -62,10 +85,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    torch.isin), and the 50,000-key table's probe; their bounds count the
    bytes the function needs from that run's data (a compaction's selected
    rows, the fill-forward's flagged rows). Then the sorts:
-   merge keys and kv, torch.sort, the composed sort at each r and kv at
-   r = 8 (2^27), and at 2^30 the composed r = 4 sort beside
-   merge_sort_keys, the scan and the r = 1 and r = 8 histograms beside
-   the reference's RTX 3060 Ti numbers (BASELINE.md).
+   merge keys and kv, torch.sort, sort64_with_ranks at 2^27 with each
+   strategy, the composed sort at each r and kv at r = 8 (2^27), and at
+   2^30 the composed r = 4 sort beside merge_sort_keys, the scan and the
+   r = 1 and r = 8 histograms beside the reference's RTX 3060 Ti numbers
+   (BASELINE.md).
 
 Each phase prints its seconds. The line before the last is a JSON object
 with one entry per kernel; the last line is {"ok": true, "device":
@@ -88,10 +112,12 @@ def main() -> int:
 
     from lsdradixsort_tpu_torch.bench.flagship import (check_keys,
                                                        check_ranks,
+                                                       chunked_record,
+                                                       sort64_keys,
                                                        torch_sort_u32)
-    from lsdradixsort_tpu_torch.core import roofline
+    from lsdradixsort_tpu_torch.core import keycodec, roofline
     from lsdradixsort_tpu_torch.core.convert import (i64_to_u32, iota_u32,
-                                                     u32_to_i64)
+                                                     order_key, u32_to_i64)
     from lsdradixsort_tpu_torch.core.datagen import (random_keys,
                                                      random_keys_bounded)
     from lsdradixsort_tpu_torch.core.timing import card_label, time_fn
@@ -106,9 +132,13 @@ def main() -> int:
     from lsdradixsort_tpu_torch.kernels import scan as SC
     from lsdradixsort_tpu_torch.kernels import tile_sort as TS
     from lsdradixsort_tpu_torch.kernels import transpose as TR
-    from lsdradixsort_tpu_torch.ops.sort import (merge_sort_keys,
+    from lsdradixsort_tpu_torch.ops import bigsort as B
+    from lsdradixsort_tpu_torch.ops.sort import (_merge_sort_multi,
+                                                 merge_sort_keys,
                                                  merge_sort_with_ranks, sort,
-                                                 sort_kv)
+                                                 sort64_with_ranks, sort_kv,
+                                                 sort_lex)
+    from lsdradixsort_tpu_torch.ops.window import window_rank
 
     dev = torch.device("cuda")
     clock = [time.perf_counter()]
@@ -161,6 +191,7 @@ def main() -> int:
 
     max_err = {k: 0 for k in ("sort_tiles", "sort_tiles_kv",
                               "sort_tiles_multi", "merge_pass_multi",
+                              "merge_pass_runs",
                               "block_digit_histograms", "exclusive_scan",
                               "exclusive_scan_hierarchical",
                               "block_prefix_sums", "transpose_tiled",
@@ -227,6 +258,82 @@ def main() -> int:
     compare("merge_pass_multi", "4-run group",
             key_and_list(M.merge_pass_multi(k4, v4, 1 << 15)),
             key_and_list(M.merge_pass_multi_plain(k4, v4, 1 << 15)))
+    # ncmp = 3, the 64-bit chain's (hi, lo, position), with and without a
+    # rider: the tile sort, then merge passes of plainly sorted tiles
+    lo3 = random_keys_bounded(n2, 0, 3, 18, dev)
+    for fam, x in families(n2, 1).items():
+        for pays in ([lo3, iota], [lo3, iota, pay]):
+            what = f"{fam} ncmp=3 streams={1 + len(pays)}"
+            compare("sort_tiles_multi", what,
+                    key_and_list(TS.sort_tiles_multi(x, pays, tile_rows,
+                                                     ncmp=3)),
+                    key_and_list(TS.sort_tiles_multi_plain(x, pays, tile_rows,
+                                                           ncmp=3)))
+            for run_log2 in (15, 18):
+                k3, v3 = TS.sort_tiles_multi_plain(
+                    x, pays, (1 << run_log2) // TS.LANES, ncmp=3)
+                compare("merge_pass_multi", f"{what} run=2^{run_log2}",
+                        key_and_list(M.merge_pass_multi(k3, v3, 1 << run_log2,
+                                                        ncmp=3)),
+                        key_and_list(M.merge_pass_multi_plain(
+                            k3, v3, 1 << run_log2, ncmp=3)))
+    del lo3
+    # merge_pass_runs: every range of merge_runs_chunked (trimmed buffers
+    # after the first range) against the plain version, and each merge
+    # against a stable torch.sort: each family as S sorted runs with the
+    # global positions as val0, the skewed layout, runs of one chunk
+    real_runs = M.merge_pass_runs
+    runs_label = [""]
+
+    def runs_checked(run_streams, tables, **kw):
+        got = real_runs(run_streams, tables, **kw)
+        compare("merge_pass_runs", f"{runs_label[0]} chunk0={kw['chunk0']}",
+                got, M.merge_pass_runs_plain(run_streams, tables, **kw))
+        return got
+
+    def chunked_case(label, x, S, nranges, chunk_log2, rider=None):
+        L = x.shape[0] // S
+        runs = [[], []] + ([[]] if rider is not None else [])
+        for s in range(S):
+            k, idx = torch_sort_u32(x[s * L:(s + 1) * L])
+            runs[0].append(k)
+            runs[1].append(i64_to_u32(idx + s * L))
+            if rider is not None:
+                runs[2].append(rider[s * L:(s + 1) * L].view(torch.int32)
+                               [idx].view(torch.uint32))
+        runs_label[0] = label
+        outs = B.merge_runs_chunked(runs, chunk_log2=chunk_log2,
+                                    nranges=nranges, consume_inputs=True)
+        wk, widx = torch_sort_u32(x)
+        want = [wk, i64_to_u32(widx)] + (
+            [rider.view(torch.int32)[widx].view(torch.uint32)]
+            if rider is not None else [])
+        for i, (o, w) in enumerate(zip(outs, want, strict=True)):
+            check_keys(torch.cat(o), w, f"merge_runs_chunked {label} "
+                       f"stream {i}")
+
+    M.merge_pass_runs = runs_checked
+    try:
+        for fam, x in families(n2, 1).items():
+            for S in (8, 4, 2):
+                for nranges in (1, 2, 4):
+                    chunked_case(f"{fam} S={S} nranges={nranges}", x, S,
+                                 nranges, 16)
+        chunked_case("uniform S=8 nranges=2 rider", random_keys(n2, 19, dev),
+                     8, 2, 16, rider=pay)
+        skew = torch.cat([random_keys_bounded(n2 // 8, s << 28,
+                                              (s << 28) + 1000, 20 + s, dev)
+                          for s in range(8)])
+        chunked_case("skewed S=8 nranges=2", skew, 8, 2, 16)
+        # runs of exactly one chunk: shorter than chunk + 2 table blocks
+        for nranges in (2, 4):
+            chunked_case(f"skewed runs of one chunk nranges={nranges}", skew,
+                         8, nranges, 19)
+            chunked_case(f"uniform runs of one chunk nranges={nranges}",
+                         random_keys(n2, 28, dev), 8, nranges, 19)
+        del skew
+    finally:
+        M.merge_pass_runs = real_runs
     # digit histograms, each family at every (r, group) and block
     for fam, x in families(n2, 1).items():
         for r, group in ((1, 0), (2, 5), (4, 3), (8, 0), (8, 3)):
@@ -335,6 +442,97 @@ def main() -> int:
         print(f"phase 2: {Q.label(op)} n={n2}: verified"
               + (f" (kernel calls {op.calls})" if op.calls else ""))
     del edata
+    # the sort family's entry points against plain references at 2^22:
+    # 64-bit keys (stable torch.sort of the int64 or float64 words), the
+    # multi-column sort (stable torch.sorts, last column first) and the
+    # window ranks (torch.sort, cummax, cumsum)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for dtype in ("uint64", "int64", "float64"):
+        if dtype == "float64":
+            # rounded normals (ties), +0.0 for -0.0 (torch.sort ties them)
+            f = torch.randn(n2, generator=gen, device=dev,
+                            dtype=torch.float64)
+            bits = ((f * 4).round() / 4 + 0.0).view(torch.int64)
+            hi = i64_to_u32((bits >> 32) & 0xFFFFFFFF)
+            lo = i64_to_u32(bits & 0xFFFFFFFF)
+            ref = bits.view(torch.float64)
+        else:
+            hi = torch.cat([
+                random_keys_bounded(n2 // 2, 0, 5, 23, dev).view(torch.int32),
+                random_keys(n2 // 2, 22, dev).view(torch.int32)
+            ]).view(torch.uint32)
+            lo = random_keys_bounded(n2, 0, 1000, 24, dev)
+            ref = order_key([hi, lo]) if dtype == "uint64" else (
+                hi.view(torch.int32).to(torch.int64) * (1 << 32)
+                + u32_to_i64(lo))
+        for desc in (False, True):
+            idx = torch.sort(ref, descending=desc, stable=True).indices
+            for strategy in ("merge", "merge2", "xla"):
+                what = f"sort64_with_ranks {dtype} desc={desc} {strategy}"
+                gh, gl, gp = sort64_with_ranks(hi, lo, dtype=dtype,
+                                               descending=desc,
+                                               strategy=strategy)
+                check_keys(gh, hi.view(torch.int32)[idx], f"{what} hi")
+                check_keys(gl, lo.view(torch.int32)[idx], f"{what} lo")
+                check_keys(gp, i64_to_u32(idx), f"{what} positions")
+    print(f"phase 2: sort64_with_ranks u64/i64/f64, ascending and "
+          f"descending, merge/merge2/xla n={n2}: verified")
+
+    def lex_plain(cols, desc):
+        perm = torch.arange(cols[0].shape[0], device=dev)
+        for c, d in reversed(list(zip(cols, desc))):
+            code = u32_to_i64(keycodec.encode(c, d))
+            perm = perm[torch.sort(code[perm], stable=True).indices]
+        return perm
+
+    lex_cols = [random_keys_bounded(n2, 0, 5, 25, dev),
+                random_keys_bounded(n2, 0, 7, 26, dev).view(torch.int32) - 3,
+                (random_keys_bounded(n2, 0, 9, 27, dev).view(torch.int32)
+                 - 4).to(torch.float32)] * 3
+    for k, desc in ((2, (False, True)), (3, (True, False, False)),
+                    (7, (False, True, False, True, True, False, False))):
+        cols = lex_cols[:k]
+        got_cols, got_perm = sort_lex(cols, descending=desc)
+        want = lex_plain(cols, desc)
+        check_keys(got_perm, i64_to_u32(want), f"sort_lex {k} columns perm")
+        for i, (g, c) in enumerate(zip(got_cols, cols, strict=True)):
+            check_keys(g.view(torch.uint32), c.view(torch.int32)[want],
+                       f"sort_lex {k} columns col {i}")
+    print(f"phase 2: sort_lex 2, 3, 7 columns (u32/i32/f32, mixed "
+          f"directions) n={n2}: verified")
+
+    def window_plain(part, order, method, desc=False):
+        perm = lex_plain([part, order], (False, desc))
+        pc = u32_to_i64(keycodec.encode(part))[perm]
+        oc = u32_to_i64(keycodec.encode(order, desc))[perm]
+        pos = torch.arange(pc.shape[0], device=dev)
+        new_p = torch.ones_like(pc, dtype=torch.bool)
+        new_p[1:] = pc[1:] != pc[:-1]
+        new_o = new_p.clone()
+        new_o[1:] |= oc[1:] != oc[:-1]
+        pstart = torch.where(new_p, pos, 0).cummax(0).values
+        if method == "row_number":
+            rank = pos - pstart
+        elif method == "rank":
+            rank = torch.where(new_o, pos, 0).cummax(0).values - pstart
+        else:
+            c = new_o.cumsum(0)
+            rank = c - c[pstart]
+        out = torch.empty_like(rank)
+        out[perm] = rank + 1
+        return i64_to_u32(out)
+
+    wpart = random_keys_bounded(n2, 0, 1000, 29, dev)
+    worder = (random_keys_bounded(n2, 0, 100, 30, dev).view(torch.int32)
+              - 50).to(torch.float32)
+    for method in ("row_number", "rank", "dense_rank"):
+        for desc in (False, True):
+            check_keys(window_rank(wpart, worder, method, desc),
+                       window_plain(wpart, worder, method, desc),
+                       f"window_rank {method} desc={desc}")
+    print(f"phase 2: window_rank row_number/rank/dense_rank, both "
+          f"directions, n={n2}: verified")
+    del wpart, worder, lex_cols
     phase_done(2)
 
     # ---- 3. main paths end to end -----------------------------------------
@@ -421,11 +619,44 @@ def main() -> int:
           f"held before the sort)")
     sort_launches, sort_plain = read_counts()
 
+    # the chunked path: the same 2^30 keys as 8 segments of 2^27, ranks
+    # only and with a u32 payload, each verified range by range
+    del keys, want, want_perm
+    reset_counts()
+    records = [chunked_record(big, None, card)]
+    print(f"phase 3: {json.dumps(records[-1])}")
+    big_vals = random_keys(1 << 30, 12, dev)
+    records.append(chunked_record(big, big_vals, card))
+    print(f"phase 3: {json.dumps(records[-1])}")
+    del big_vals
+    chunked_launches, chunked_plain = read_counts()
+
+    # the 64-bit path: sort64_with_ranks of 2^27 (hi, lo) planes, the
+    # "merge" strategy (the ncmp = 3 chain) counted on its own, every
+    # strategy against a stable torch.sort of the int64 words
+    hi64, lo64 = random_keys(n, 11, dev), random_keys(n, 12, dev)
+    wh, wl, widx = sort64_keys(hi64, lo64)
+    for strategy in ("merge", "merge2", "xla"):
+        if strategy == "merge":
+            reset_counts()
+        gh, gl, gp = sort64_with_ranks(hi64, lo64, strategy=strategy)
+        if strategy == "merge":
+            torch.cuda.synchronize()
+            sort64_launches, sort64_plain = read_counts()
+        check_keys(gh, wh, f"sort64_with_ranks 2^27 {strategy} hi")
+        check_keys(gl, wl, f"sort64_with_ranks 2^27 {strategy} lo")
+        check_keys(gp, i64_to_u32(widx),
+                   f"sort64_with_ranks 2^27 {strategy} positions")
+        del gh, gl, gp
+    del wh, wl, widx
+    print("phase 3: sort64_with_ranks 2^27 merge (ncmp=3 chain), merge2, "
+          "xla: verified")
+    keys = random_keys(n, 0, dev)
+
     # the query path: every op of bench/query.py at n = 10^8, nb = 10^7,
     # both engines where there are two, each checked against an
     # independent plain reference, with its peak device memory and the
     # kernel launches of one query
-    del want, want_perm
     qdata = Q.make_data(dev)
     reset_counts()
     for op in Q.query_ops(qdata):
@@ -437,23 +668,53 @@ def main() -> int:
               f"verified; peak device memory {peak_q:.2f} GiB "
               f"({held_q:.2f} GiB held before); launches {used}")
     query_launches, query_plain = read_counts()
+
+    # window ranks of config 3's columns: partition by the group keys,
+    # order by the filter keys, each method against the plain reference
+    reset_counts()
+    for method in ("row_number", "rank", "dense_rank"):
+        got = window_rank(qdata["gkeys"], qdata["keys"], method)
+        torch.cuda.synchronize()
+        if method == "row_number":
+            window_launches, window_plain_calls = read_counts()
+        check_keys(got, window_plain(qdata["gkeys"], qdata["keys"], method),
+                   f"window_rank {method} n={qdata['n']}")
+        del got
+    print(f"phase 3: window_rank row_number/rank/dense_rank n={qdata['n']} "
+          f"(partition by group keys, order by filter keys): verified")
     phase_done(3)
 
     # ---- 4. launch counters -----------------------------------------------
     query_kernels = ("compact_stream_multi", "fill_forward_last",
                      "probe_table")
+    sort_kernels = tuple(k for k in sort_launches
+                         if k not in query_kernels + ("merge_pass_runs",))
+    # each path, its counts, and the kernels it must have launched
+    paths = {
+        "sort": (sort_launches, sort_plain, sort_kernels),
+        "chunked": (chunked_launches, chunked_plain,
+                    ("sort_tiles_multi", "merge_pass_multi",
+                     "merge_pass_runs")),
+        "sort64 merge (ncmp=3)": (sort64_launches, sort64_plain,
+                                  ("sort_tiles_multi", "merge_pass_multi")),
+        "query": (query_launches, query_plain, query_kernels),
+        "window_rank": (window_launches, window_plain_calls,
+                        ("sort_tiles_multi", "merge_pass_multi",
+                         "fill_forward_last")),
+    }
+    for pname, (lc, pc, need) in paths.items():
+        print(f"phase 4: {pname} path: kernel launches "
+              f"{ {k: v for k, v in lc.items() if v} }; plain calls "
+              f"{ {k: v for k, v in pc.items() if v} }")
+        idle = [k for k in need if lc[k] == 0]
+        if idle:
+            raise AssertionError(f"{pname}: kernels never launched on the "
+                                 f"path: {idle}")
+        if any(pc.values()):
+            raise AssertionError(f"{pname}: plain versions ran")
     launches = {k: query_launches[k] if k in query_kernels
+                else chunked_launches[k] if k == "merge_pass_runs"
                 else sort_launches[k] for k in sort_launches}
-    print(f"phase 4: sort paths: kernel launches {sort_launches}; plain "
-          f"calls {sort_plain}")
-    print(f"phase 4: query path: kernel launches {query_launches}; plain "
-          f"calls {query_plain}")
-    idle = [k for k, v in launches.items() if v == 0]
-    if idle:
-        raise AssertionError(f"kernels never launched on their main path: "
-                             f"{idle}")
-    if any(sort_plain.values()) or any(query_plain.values()):
-        raise AssertionError("plain versions ran on a main path")
     phase_done(4)
 
     # ---- 5. kernels at the main path's shapes; times ---------------------
@@ -467,6 +728,13 @@ def main() -> int:
     report("merge_sort_with_ranks", t_kv)
     report("torch.sort stable (values+indices)", time_fn(torch_sort_u32, keys))
     report("entry sort_kv 2^20", time_fn(step, ek, ev), ek.shape[0])
+    t64 = {}
+    for strategy in ("merge", "merge2", "xla"):
+        t64[strategy] = time_fn(lambda s=strategy: sort64_with_ranks(
+            hi64, lo64, strategy=s))
+        report(f"sort64_with_ranks {strategy}", t64[strategy])
+    print(f"time sort64_with_ranks merge / merge2: "
+          f"{t64['merge'].ms / t64['merge2'].ms:.3f} ({card})")
 
     # each kernel against its plain version at the main path's shapes: the
     # tile sort at n = 2^27, then every merge pass of the chain (run 2^15,
@@ -477,6 +745,7 @@ def main() -> int:
     iota = iota_u32(n, dev)
     pay = random_keys(n, 2, dev)
     rows = {}
+    timed = {}     # kernel -> [(cuda ms, plain ms)] of every timed call
 
     def check_and_time(kname, what, fn, plain_fn, args, nbytes, split,
                        library=None, elems=n, defined=None):
@@ -489,6 +758,7 @@ def main() -> int:
         tk = time_fn(fn, *args)
         tp = time_fn(plain_fn, *args)
         tl = time_fn(library) if library is not None else None
+        timed.setdefault(kname, []).append((tk.ms, tp.ms))
         lib = f", library {tl.ms:.3f} ms" if tl is not None else ""
         print(f"kernel {kname} [{what}] n={elems}: bit exact; cuda "
               f"{tk.ms:.3f} ms, plain {tp.ms:.3f} ms{lib}, bound "
@@ -509,7 +779,9 @@ def main() -> int:
          (keys, tile_rows),
          lambda: torch.sort(flipped(keys).view(-1, tile), dim=1)),
         ("sort_tiles_kv", "key+pos", TS.sort_tiles_kv,
-         TS.sort_tiles_kv_plain, (keys, iota, tile_rows), None),
+         TS.sort_tiles_kv_plain, (keys, iota, tile_rows),
+         lambda w=order_key([keys, iota], flip1=True).view(-1, tile):
+         torch.sort(w, dim=1)),
         ("sort_tiles_multi", "key+pos+payload", TS.sort_tiles_multi,
          TS.sort_tiles_multi_plain, (keys, [iota, pay], tile_rows), None),
     ]
@@ -522,17 +794,40 @@ def main() -> int:
              "sort_tiles_multi": key_and_list}[kname], library)
         run = 1 << 15
         while run < n:
-            x0, group = streams[0], min(M.KWAY * run, n)
+            # library: one torch.sort of each group, of the keys or of the
+            # int64 (key, pos) words; none moves a third stream
+            group = min(M.KWAY * run, n)
+            library = None
+            if len(streams) == 1:
+                library = (lambda x0=streams[0], group=group: torch.sort(
+                    flipped(x0).view(-1, group), dim=1))
+            elif len(streams) == 2:
+                library = (lambda w=order_key(streams).view(-1, group):
+                           torch.sort(w, dim=1))
             streams = check_and_time(
                 "merge_pass_multi",
                 f"{what} run=2^{run.bit_length() - 1}", M.merge_pass_multi,
                 M.merge_pass_multi_plain, (streams[0], streams[1:], run),
-                2 * 4 * n * len(streams), key_and_list,
-                (lambda x0=x0, group=group: torch.sort(
-                    flipped(x0).view(-1, group), dim=1))
-                if len(streams) == 1 else None)
+                2 * 4 * n * len(streams), key_and_list, library)
+            del library
             run *= M.KWAY
         del streams
+    # the 64-bit chain at n = 2^27: (hi, lo, position) compared, ncmp = 3
+    streams = check_and_time(
+        "sort_tiles_multi", "hi+lo+pos ncmp=3",
+        lambda k, v, t: TS.sort_tiles_multi(k, v, t, ncmp=3),
+        lambda k, v, t: TS.sort_tiles_multi_plain(k, v, t, ncmp=3),
+        (hi64, [lo64, iota], tile_rows), 2 * 4 * n * 3, key_and_list)
+    run = 1 << 15
+    while run < n:
+        streams = check_and_time(
+            "merge_pass_multi",
+            f"hi+lo+pos ncmp=3 run=2^{run.bit_length() - 1}",
+            lambda k, v, r: M.merge_pass_multi(k, v, r, ncmp=3),
+            lambda k, v, r: M.merge_pass_multi_plain(k, v, r, ncmp=3),
+            (streams[0], streams[1:], run), 2 * 4 * n * 3, key_and_list)
+        run *= M.KWAY
+    del streams
     print(f"phase 5: every merge-path kernel bit exact against its plain "
           f"version along the main path at n=2^27 (max_abs_err {max_err})")
 
@@ -684,7 +979,7 @@ def main() -> int:
     tk_ = time_fn(HT.probe_table, *wide[:3], wide_probes)
     print(f"time probe_table 50000-key table ({wide[0].shape[0]} rows, past "
           f"shared memory), 2^22 probes: {tk_.ms:.3f} ms ({card})")
-    del wide, wide_probes
+    del wide, wide_probes, qdata
     print(f"phase 5: every query-path kernel bit exact against its plain "
           f"version at n={qn} (max_abs_err {max_err})")
 
@@ -710,7 +1005,45 @@ def main() -> int:
     report("histogram 2^30 r=8 block 512 (reference: 18.974 ms on an RTX "
            "3060 Ti)", time_fn(H.block_digit_histograms, big, 8, 0, 512),
            n30)
-    del big
+    # merge_pass_runs on each range of the 2^30 chunked pass: 2 streams,
+    # the untrimmed runs of the 8 segment sorts; bound: every row of the
+    # pass read and written once (2 streams x 4 bytes x 2 x 2^30), library:
+    # one stable torch.sort of the 2^30 int64 (key, position) words
+    seg = n30 // 8
+    runs = [[], []]
+    for s_ in range(8):
+        k, (r,) = _merge_sort_multi(
+            big[s_ * seg:(s_ + 1) * seg],
+            [i64_to_u32(torch.arange(s_ * seg, (s_ + 1) * seg, device=dev))],
+            15)
+        runs[0].append(k)
+        runs[1].append(r)
+        del k, r
+    nch = n30 >> 19
+    tab = M.merge_tables_exact_runs(runs[0], 1 << 19)[0].cpu()
+    for ri in range(2):
+        kw = dict(chunk0=ri * nch // 2, nchunks=nch // 2,
+                  chunk_elems=1 << 19, buf_elems=M.DEF_BUF)
+        check_and_time(
+            "merge_pass_runs", f"2^30 pass, range {ri} of 2, 2 streams",
+            lambda rs, t, kw=kw: M.merge_pass_runs(rs, t, **kw),
+            lambda rs, t, kw=kw: M.merge_pass_runs_plain(rs, t, **kw),
+            (runs, tab), 2 * 2 * 4 * (n30 // 2), list, elems=n30 // 2)
+    words = torch.cat([order_key([k, r]) for k, r in zip(*runs)])
+    del runs, big
+    t_lib = time_fn(lambda: torch.sort(words, stable=True))
+    del words
+    rows["merge_pass_runs"] = {
+        "ms": sum(t for t, _ in timed["merge_pass_runs"]),
+        "plain_ms": sum(t for _, t in timed["merge_pass_runs"]),
+        "bound_ms": bound_ms(2 * 2 * 4 * n30), "bound_by": "bytes",
+        "library_ms": t_lib.ms,
+        "shape": "2^30 pass (2 ranges of 2^29), 2 streams"}
+    print(f"kernel merge_pass_runs [2^30 pass, 2 ranges, 2 streams]: cuda "
+          f"{rows['merge_pass_runs']['ms']:.3f} ms, plain "
+          f"{rows['merge_pass_runs']['plain_ms']:.3f} ms, library "
+          f"{t_lib.ms:.3f} ms (stable torch.sort of 2^30 int64 words), "
+          f"bound {rows['merge_pass_runs']['bound_ms']:.3f} ms ({card})")
     phase_done(5)
 
     sources = {
@@ -722,6 +1055,8 @@ def main() -> int:
                              "lsdradixsort_tpu/kernels/tile_sort.py:298"),
         "merge_pass_multi": ("lsdradixsort_tpu_torch/csrc/merge.cu",
                              "lsdradixsort_tpu/kernels/merge.py:626"),
+        "merge_pass_runs": ("lsdradixsort_tpu_torch/csrc/merge.cu",
+                            "lsdradixsort_tpu/kernels/merge.py:867"),
         "block_digit_histograms": (
             "lsdradixsort_tpu_torch/csrc/histogram.cu",
             "lsdradixsort_tpu/kernels/histogram.py:183"),

@@ -11,15 +11,19 @@ PyTorch version instead.
 Layer map:
   core/      key codecs, digit math, numpy <-> tensor conversion, data
              generation, CUDA-event timing, the roofline
-  kernels/   tile sort, 8-way merge pass, digit histogram, exclusive
-             scans, tiled transpose, stream compaction, fill-forward,
-             hash-table probe (CUDA + plain versions)
-  ops/       the sort operators (merge_sort_*, sort, sort_kv, ...) and
-             the query operators (filter, group by, join, top-k, unique)
+  kernels/   tile sort, 8-way merge passes (grouped runs, and runs in
+             separate buffers for the chunked sort), digit histogram,
+             exclusive scans, tiled transpose, stream compaction,
+             fill-forward, hash-table probe (CUDA + plain versions)
+  ops/       the sort operators (merge_sort_*, sort, sort_kv, sort_lex,
+             sort64_with_ranks, sort_blocks_kv, ...), the chip-scale
+             chunked sort (bigsort), the query operators (filter, group
+             by, join, top-k, unique) and window ranks
   utils/     bit-exact verification helpers
   bench/     the flagship benchmark (bench/flagship.py) and the query
              benchmark (bench/query.py)
 """
+from lsdradixsort_tpu_torch.kernels.fill_forward import fill_forward_last
 from lsdradixsort_tpu_torch.kernels.histogram import (block_digit_histograms,
                                                       digit_histogram)
 from lsdradixsort_tpu_torch.kernels.merge import (merge_pass, merge_pass_kv,
@@ -41,18 +45,22 @@ from lsdradixsort_tpu_torch.ops.join import (hash_join, hash_join64,
 from lsdradixsort_tpu_torch.ops.sort import (argsort, merge_sort_keys,
                                              merge_sort_multi,
                                              merge_sort_with_ranks, sort,
-                                             sort_kv, sort_with_ranks)
+                                             sort64_with_ranks,
+                                             sort_blocks_kv, sort_kv,
+                                             sort_lex, sort_with_ranks)
 from lsdradixsort_tpu_torch.ops.topk import top_k, unique
+from lsdradixsort_tpu_torch.ops.window import window_rank
 
 __all__ = [
     "sort", "sort_kv", "argsort", "sort_with_ranks",
+    "sort64_with_ranks", "sort_lex", "sort_blocks_kv",
     "merge_sort_keys", "merge_sort_with_ranks", "merge_sort_multi",
-    "sort_tiles", "sort_tiles_kv", "sort_tiles_multi",
+    "sort_tiles", "sort_tiles_kv", "sort_tiles_multi", "fill_forward_last",
     "merge_pass", "merge_pass_kv", "merge_pass_multi",
     "digit_histogram", "block_digit_histograms",
     "exclusive_scan", "block_prefix_sums",
     "compact", "filter_keys", "filter_kv", "filter_in_set",
     "filter_not_in_set", "group_by_sum", "group_by_aggregate",
     "filtered_group_by_sum", "hash_join", "hash_join_multi", "probe_lookup",
-    "probe_lookup64", "hash_join64", "top_k", "unique",
+    "probe_lookup64", "hash_join64", "top_k", "unique", "window_rank",
 ]

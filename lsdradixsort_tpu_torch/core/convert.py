@@ -60,10 +60,29 @@ def wrap_u32(t: torch.Tensor) -> torch.Tensor:
     return i64_to_u32(t & 0xFFFFFFFF)
 
 
+def row_order(words, width: int, flip1: bool = False) -> torch.Tensor:
+    """Stable ascending order within each row of `width` u32 rows compared
+    lexicographically on their words (word 1 signed when flip1), as a
+    (rows, width) int64 permutation. Words past the second are sorted
+    first, least significant first, then once by the first two."""
+    perm = None
+    for w in reversed(words[2:]):
+        perm = _stable_rows(u32_to_i64(w).view(-1, width), perm)
+    return _stable_rows(order_key(words[:2], flip1).view(-1, width), perm)
+
+
+def _stable_rows(key: torch.Tensor, perm) -> torch.Tensor:
+    """perm refined by a stable sort of each row of key taken along it."""
+    if perm is not None:
+        key = key.gather(1, perm)
+    idx = torch.sort(key, dim=1, stable=True).indices
+    return idx if perm is None else perm.gather(1, idx)
+
+
 def stable_order(words) -> torch.Tensor:
-    """Stable ascending order (int64 positions) of u32 rows compared on
-    one or two words."""
-    return torch.sort(order_key(words), stable=True).indices
+    """Stable ascending order (int64 positions) of u32 rows compared
+    lexicographically on their words."""
+    return row_order(words, words[0].shape[0]).view(-1)
 
 
 def gather(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:

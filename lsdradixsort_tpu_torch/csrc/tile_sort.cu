@@ -3,21 +3,21 @@
 // Replaces the Pallas kernels of lsdradixsort_tpu/kernels/tile_sort.py:
 // sort_tiles (_bitonic_keys_kernel), sort_tiles_kv (_bitonic_kernel) and
 // sort_tiles_multi (_bitonic_multi_kernel). Every tile of T = 2^tile_log2
-// rows is sorted ascending by its "words": the key, then up to two more
-// u32 words compared lexicographically (the compared payload and/or the
-// row's index inside its tile). Word 1 is compared after XOR with `flip1`
-// (0x80000000 compares it as a signed int32, the sort_tiles_kv rule).
-// A pair whose words tie never swaps.
+// rows is sorted ascending by its "words": the key, then up to three more
+// u32 words compared lexicographically (the compared payloads, one or two,
+// then the row's index inside its tile when payloads ride). Word 1 is
+// compared after XOR with `flip1` (0x80000000 compares it as a signed
+// int32, the sort_tiles_kv rule). A pair whose words tie never swaps.
 //
 // What bounds it on the H100: a 2^15-row tile of one word is 128 KB and
-// fits one block's shared memory (227 KB), but 2 or 3 words (256 or
-// 384 KB) do not. Design: a shared-memory kernel sorts sub-tiles of
+// fits one block's shared memory (227 KB), but 2, 3 or 4 words (256,
+// 384 or 512 KB) do not. Design: a shared-memory kernel sorts sub-tiles of
 // S = 2^sub_log2 rows (128 KB of words at most) and finishes the low
 // stages (distance < S) of every later bitonic phase; the few stages with
 // distance >= S run as one compare-exchange pass over device memory each,
 // one thread per pair, reading and writing whole rows. For T = 2^15 that
-// is 0, 1 or 3 device-memory stages for 1, 2 or 3 words. Each stage moves
-// every word twice through device memory (3.35 TB/s), so the sort is
+// is 0, 1 or 3 device-memory stages for 1, 2 or 3-4 words. Each stage
+// moves every word twice through device memory (3.35 TB/s), so the sort is
 // bandwidth bound; making the sub-tile larger (clusters sharing shared
 // memory) is the next step.
 //
@@ -29,7 +29,7 @@
 
 namespace {
 
-constexpr int kMaxWords = 3;
+constexpr int kMaxWords = 4;
 constexpr int kBlockThreads = 1024;
 constexpr int kStageThreads = 256;
 
@@ -147,6 +147,8 @@ gather_tiles(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
 
 // Largest sub-tile whose W words fit 128 KB of shared memory.
 constexpr int sub_log2_max(int W) { return W == 1 ? 15 : (W == 2 ? 14 : 13); }
+static_assert(4 * (1 << sub_log2_max(kMaxWords)) * kMaxWords <= 128 * 1024,
+              "a sub-tile of kMaxWords words must fit 128 KB");
 
 constexpr int imin(int a, int b) { return a < b ? a : b; }
 
@@ -184,7 +186,7 @@ cudaError_t sort_tiles(Words io, long long n, int tile_log2, uint32_t flip1,
 
 }  // namespace
 
-// Sort every tile of 2^tile_log2 rows of `nwords` (1..3) u32 words.
+// Sort every tile of 2^tile_log2 rows of `nwords` (1..4) u32 words.
 // src[w] == nullptr makes word w the row's index in its tile. n must be a
 // multiple of the tile; 1 <= tile_log2 <= 30. Returns a cudaError_t.
 extern "C" int lsd_sort_tiles(const void* const* src, void* const* dst,
@@ -205,6 +207,7 @@ extern "C" int lsd_sort_tiles(const void* const* src, void* const* dst,
     case 1: return sort_tiles<1>(io, n, tile_log2, flip1, st);
     case 2: return sort_tiles<2>(io, n, tile_log2, flip1, st);
     case 3: return sort_tiles<3>(io, n, tile_log2, flip1, st);
+    case 4: return sort_tiles<4>(io, n, tile_log2, flip1, st);
     default: return cudaErrorInvalidValue;
   }
 }

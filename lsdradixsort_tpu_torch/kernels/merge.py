@@ -1,24 +1,37 @@
-"""8-way merge pass — the port of `merge_pass_multi` and its wrappers
-`merge_pass` and `merge_pass_kv` (lsdradixsort_tpu/kernels/merge.py).
+"""8-way merge passes — the port of `merge_pass_multi` and its wrappers
+`merge_pass` and `merge_pass_kv`, and of the chip-scale chunked pass
+`merge_pass_runs` with its exact-rank tables `merge_tables_exact_runs`
+(lsdradixsort_tpu/kernels/merge.py).
 
-One pass turns every group of KWAY = 8 consecutive sorted runs of
-`run_len` rows into one sorted run (the last group may hold fewer runs).
-Rows are ordered by the key, then by payload 0 when ncmp = 2 (the
-default with payloads), both unsigned as in the TPU kernel
+One `merge_pass_multi` pass turns every group of KWAY = 8 consecutive
+sorted runs of `run_len` rows into one sorted run (the last group may
+hold fewer runs). Rows are ordered by the key, then by payload 0 when
+ncmp >= 2 (the default with payloads), then by payload 1 when ncmp = 3
+(the 64-bit single-chain sort), all unsigned as in the TPU kernel
 (merge.py:388-389); equal rows keep run order, then input order. Every
 payload moves with its row.
 
-The TPU kernel needed sample tables from an XLA prepass
-(`merge_pass_tables`), VMEM quarter buffers and DMA windows, and a skew
-fallback for tables that overflow the buffer. The Hopper kernel
-(``csrc/merge.cu``) computes each row's output position directly by
-binary search in the other runs of its group, so it needs no tables and
-has no capacity to overflow.
+`merge_pass_runs` merges S <= 8 sorted runs that each sit in a buffer of
+their own (lengths may differ once consumed prefixes are trimmed) and
+writes one range of whole chunks of the merged order, as
+ops/bigsort.py's 2^30 memory plan needs. `merge_tables_exact_runs` is
+torch glue, as it is jnp in the JAX package: the same k-way selection
+(value bisection or `fanout` interval shrink) and the same int32 table,
+bit for bit. The port's kernel reads only two things from the table: the
+range's first rank and, per run, the union of the range's windows.
 
-On a CUDA tensor `merge_pass_multi` launches that kernel; on a CPU tensor
-it runs the plain PyTorch version (a stable sort of each group), which
-`chip_smoke.py` also runs on the card to check the kernel. `LAUNCHES` and
-`PLAIN_CALLS` count both.
+The TPU kernels needed sample tables from an XLA prepass
+(`merge_pass_tables`), VMEM quarter buffers and DMA windows, and a skew
+fallback for tables that overflow the buffer. The Hopper kernels
+(``csrc/merge.cu``) compute each row's output position directly by
+binary search in the other runs, so they need no sample tables and have
+no capacity to overflow; the TPU knobs (buf_elems, blk for the DMA
+windows, ce, pipeline, interpret) are accepted and change nothing.
+
+On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it
+runs the plain PyTorch version (a stable sort), which `chip_smoke.py`
+also runs on the card to check the kernel. `LAUNCHES` and `PLAIN_CALLS`
+count both.
 """
 from __future__ import annotations
 
@@ -26,18 +39,21 @@ import ctypes
 
 import torch
 
-from lsdradixsort_tpu_torch.core.convert import order_key, take_rows
+from lsdradixsort_tpu_torch.core.convert import gather, row_order, take_rows
 from lsdradixsort_tpu_torch.kernels import _build
 
 KWAY = 8              # fan-in per merge pass
 MAX_STREAMS = 8       # key + payloads the kernel moves in one pass
+LANES = 128           # the table counts rows in units of 128
+NCOLS = 24            # columns of a merge table (the JAX layout)
 # Defaults of the JAX merge engine's TPU tuning knobs (sample stride and
 # VMEM buffer, in elements). ops/sort.py accepts and ignores those knobs.
 DEF_BLK = 2048
 DEF_BUF = 1 << 20
 
-LAUNCHES = {"merge_pass_multi": 0}
-PLAIN_CALLS = {"merge_pass_multi": 0}
+LAUNCHES = {"merge_pass_multi": 0, "merge_pass_runs": 0}
+PLAIN_CALLS = {"merge_pass_multi": 0, "merge_pass_runs": 0}
+_SIGN32 = -(1 << 31)  # 0x80000000 as an int32 bit pattern
 
 
 def _check(keys: torch.Tensor, vals, run_len: int, ncmp) -> int:
@@ -58,11 +74,7 @@ def _check(keys: torch.Tensor, vals, run_len: int, ncmp) -> int:
         raise ValueError(f"unsupported device {keys.device}")
     if ncmp is None:
         ncmp = min(2, 1 + len(vals))
-    if ncmp == 3:
-        raise NotImplementedError(
-            "ncmp=3 (the 64-bit single-chain merge) lands with sort64, "
-            "ROADMAP Queue A item 5")
-    if ncmp not in (1, 2) or ncmp > 1 + len(vals):
+    if ncmp not in (1, 2, 3) or ncmp > 1 + len(vals):
         raise ValueError(f"ncmp={ncmp} with {len(vals)} payloads")
     return ncmp
 
@@ -82,8 +94,7 @@ def merge_pass_multi_plain(keys, vals, run_len: int,
     for lo, hi in ((0, full), (full, n)):     # full groups, then the rest
         if hi > lo:
             seg = [s[lo:hi] for s in streams]
-            key = order_key(seg[:ncmp]).view(-1, min(group, hi - lo))
-            perm = torch.sort(key, dim=1, stable=True).indices
+            perm = row_order(seg[:ncmp], min(group, hi - lo))
             parts.append([take_rows(s, perm) for s in seg])
     out = [torch.cat(cols) for cols in zip(*parts)] if parts else streams
     return out[0], out[1:]
@@ -94,7 +105,8 @@ def merge_pass_multi(keys: torch.Tensor, vals, run_len: int,
     """One KWAY merge pass with any number of payload streams (up to 7).
 
     keys and vals: (n,) uint32, sorted in runs of run_len by the compared
-    streams (the key, then vals[0] when ncmp = 2); n % run_len == 0.
+    streams (the key, then vals[0] when ncmp >= 2, then vals[1] when
+    ncmp = 3); n % run_len == 0.
     Returns (sorted_keys, [payloads...]) in runs of KWAY * run_len."""
     vals = list(vals)
     if keys.device.type == "cpu":
@@ -125,3 +137,227 @@ def merge_pass(keys: torch.Tensor, run_len: int) -> torch.Tensor:
     """One keys-only merge pass: sorted runs of run_len -> KWAY*run_len."""
     out, _ = merge_pass_multi(keys, [], run_len)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Chip-scale chunked pass: runs in separate buffers, exact-rank chunks
+# ---------------------------------------------------------------------------
+
+def merge_tables_exact_runs(run_keys, chunk_elems: int, blk: int = DEF_BLK,
+                            fanout: int | None = None,
+                            rounds: int | None = None):
+    """Exact-rank merge tables for S separately buffered sorted runs: every
+    chunk is exactly chunk_elems rows; boundary t sits at global rank
+    t * chunk_elems of the (key, run, position) order, found by k-way
+    selection (the key of that rank by value search, then ties filled in
+    run order).
+
+    fanout=None is a 32-round value bisection; an integer fanout >= 3
+    probes fanout - 1 candidates per boundary per round (the interval
+    shrink of the JAX package's distributed splitter search); rounds
+    overrides its derived round count.
+
+    run_keys: list of S (L,) uint32 sorted tensors, S <= KWAY, equal L.
+    Returns (tab, max_pair) as the JAX package does: tab is
+    ((nch + pad + 8), NCOLS) int32, col s the window start of run s in
+    128-row units, cols 8-15 the window lengths in blk units, col 16 m,
+    col 17 the emit row, col 18 the absolute out row, col 19 C / 128;
+    max_pair the largest wblk[2q] + wblk[2q+1] (the TPU kernel's quarter
+    load, which nothing in the port checks).
+
+    Values are searched as int64 in [0, 2^32) and the runs as int32 views
+    with the sign bit flipped (whose signed order is the unsigned order):
+    CPU torch has no uint32 compares, CUDA torch no uint32 searchsorted.
+    """
+    S = len(run_keys)
+    L = run_keys[0].shape[0]
+    C = chunk_elems
+    nch = S * L // C
+    dev = run_keys[0].device
+    runs = [k.view(torch.int32) ^ _SIGN32 for k in run_keys]
+
+    def count(v, right=True):
+        """Per run, its rows ordered at or before (right) or before v."""
+        probe = (v - (1 << 31)).to(torch.int32)
+        return [torch.searchsorted(r, probe, right=right) for r in runs]
+
+    g = torch.arange(1, nch, dtype=torch.int64, device=dev) * C
+    vlo = torch.zeros_like(g)
+    vhi = torch.full_like(g, 0xFFFFFFFF)
+    if fanout is None:
+        for _ in range(32):
+            live = vlo < vhi
+            mid = vlo + ((vhi - vlo) >> 1)
+            pred = sum(count(mid)) >= g + 1
+            vhi = torch.where(live & pred, mid, vhi)
+            vlo = torch.where(live & ~pred, mid + 1, vlo)
+    else:
+        F = fanout
+        if F < 3:
+            raise ValueError(f"fanout={F} must be >= 3")
+        if rounds is None:
+            # width recurrence: w' <= w // (F-1) + (F-3); any w <= F-1
+            # collapses to 0 in one round (consecutive unit-step probes)
+            w, rounds = 1 << 32, 0
+            while w > 0:
+                w = w // (F - 1) + (F - 3) if w > F - 1 else 0
+                rounds += 1
+        jj = torch.arange(F - 1, dtype=torch.int64, device=dev)[None, :]
+        for _ in range(rounds):
+            w = vhi - vlo
+            step = torch.clamp(w // (F - 1), min=1)
+            probes = vlo[:, None] + torch.minimum(step[:, None] * jj,
+                                                  w[:, None])
+            geq = sum(count(probes)) >= (g + 1)[:, None]      # monotone
+            any_ = geq.any(dim=1)
+            first = geq.to(torch.int32).argmax(dim=1)         # 0 if none
+            pf = probes.gather(1, first[:, None].long())[:, 0]
+            pprev = probes.gather(
+                1, (first - 1).clamp(min=0)[:, None].long())[:, 0]
+            vhi, vlo = (torch.where(any_, pf, vhi),
+                        torch.where(any_, torch.where(first > 0, pprev + 1,
+                                                      vlo),
+                                    probes[:, -1] + 1))
+    lo = torch.stack(count(vlo, right=False), dim=1)           # (nch-1, S)
+    eq = torch.stack(count(vlo), dim=1) - lo
+    del runs
+    need = g - lo.sum(dim=1)                                   # == vstar
+    cum = eq.cumsum(dim=1) - eq                                # run by run
+    take = torch.minimum(torch.clamp(need[:, None] - cum, min=0), eq)
+    rank = torch.cat([torch.zeros((1, S), dtype=torch.int64, device=dev),
+                      lo + take,
+                      torch.full((1, S), L, dtype=torch.int64, device=dev)])
+
+    # block-aligned windows + exact in-buffer offsets
+    wstart = rank[:nch] // blk
+    wend = torch.maximum((rank[1:] + blk - 1) // blk, wstart)
+    wblk = wend - wstart                                       # (nch, S)
+    pre = (rank[:nch] - wstart * blk).sum(dim=1)               # exact
+    if S < KWAY:
+        z = torch.zeros((nch, KWAY - S), dtype=torch.int64, device=dev)
+        wstart = torch.cat([wstart, z], dim=1)
+        wblk = torch.cat([wblk, z], dim=1)
+    max_pair = (wblk[:, 0::2] + wblk[:, 1::2]).max().to(torch.int32)
+    m = (-pre) % LANES
+    tab = torch.zeros((-(-nch // 8) * 8 + 8, NCOLS), dtype=torch.int64,
+                      device=dev)
+    tab[:nch, 0:KWAY] = wstart * (blk // LANES)
+    tab[:nch, KWAY:2 * KWAY] = wblk
+    tab[:nch, 16] = m
+    tab[:nch, 17] = (pre + m) // LANES
+    tab[:nch, 18] = torch.arange(nch, device=dev) * (C // LANES)
+    tab[:nch, 19] = C // LANES
+    return tab.to(torch.int32), max_pair
+
+
+def _runs_plan(run_streams, tables, chunk0: int, nchunks: int,
+               chunk_elems: int, blk: int, ncmp):
+    """Validate a merge_pass_runs call; return (ncmp, lens, first, end,
+    lo_rank, count): rows [first[s], end[s]) of run s hold every row of
+    the range (the union of its table windows), whose first merged rank
+    in these buffers is lo_rank."""
+    ns = len(run_streams)
+    S = len(run_streams[0]) if ns else 0
+    if not 1 <= ns <= MAX_STREAMS or not 1 <= S <= KWAY:
+        raise ValueError(f"need 1..{MAX_STREAMS} streams of 1..{KWAY} runs, "
+                         f"got {ns} streams of {S}")
+    dev = run_streams[0][0].device
+    lens = [int(r.shape[0]) for r in run_streams[0]]
+    for rs in run_streams:
+        if len(rs) != S:
+            raise ValueError("every stream needs one buffer per run")
+        for r, ln in zip(rs, lens):
+            if r.dtype != torch.uint32 or r.dim() != 1 or r.shape[0] != ln:
+                raise ValueError("run buffers must be (L_s,) torch.uint32, "
+                                 "equal in length across streams, got "
+                                 f"{r.dtype} {tuple(r.shape)}")
+            if not r.is_contiguous() or r.device != dev:
+                raise ValueError("run buffers must be contiguous, on one "
+                                 "device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if ncmp is None:
+        ncmp = min(2, ns)
+    if ncmp not in (1, 2, 3) or ncmp > ns:
+        raise ValueError(f"ncmp={ncmp} with {ns} streams")
+    tab = torch.as_tensor(tables).to("cpu", torch.int64)
+    if chunk0 < 0 or nchunks < 1 or chunk0 + nchunks > tab.shape[0]:
+        raise ValueError(f"chunks [{chunk0}, {chunk0 + nchunks}) outside a "
+                         f"table of {tab.shape[0]} rows")
+    rows = tab[chunk0:chunk0 + nchunks]
+    start = rows[:, :S] * LANES
+    stop = start + rows[:, KWAY:KWAY + S] * blk
+    first = [min(max(int(start[:, s].min()), 0), lens[s]) for s in range(S)]
+    end = [min(max(int(stop[:, s].max()), first[s]), lens[s])
+           for s in range(S)]
+    lo_rank = (int(rows[0, :KWAY].sum()) * LANES + int(rows[0, 17]) * LANES
+               - int(rows[0, 16]))
+    count = nchunks * chunk_elems
+    if lo_rank < 0 or lo_rank + count > sum(lens):
+        raise ValueError(f"ranks [{lo_rank}, {lo_rank + count}) outside the "
+                         f"{sum(lens)} rows of the runs")
+    return ncmp, lens, first, end, lo_rank, count
+
+
+def merge_pass_runs_plain(run_streams, tables, *, chunk0: int, nchunks: int,
+                          chunk_elems: int, buf_elems: int,
+                          blk: int = DEF_BLK, interpret: bool | None = None,
+                          ce: str = "roll", pipeline: bool = True,
+                          ncmp: int | None = None):
+    """Plain PyTorch version: a stable sort of the rows the range's
+    windows cover, run by run, and the range's slice of it (every row of
+    a run before its window ranks before the range, every row after it
+    after the range)."""
+    ncmp, _, first, end, lo_rank, count = _runs_plan(
+        run_streams, tables, chunk0, nchunks, chunk_elems, blk, ncmp)
+    PLAIN_CALLS["merge_pass_runs"] += 1
+    cand = [torch.cat([r.view(torch.int32)[a:b]
+                       for r, a, b in zip(rs, first, end)]).view(torch.uint32)
+            for rs in run_streams]
+    perm = row_order(cand[:ncmp], cand[0].shape[0]).view(-1)
+    at = lo_rank - sum(first)
+    perm = perm[at:at + count]
+    return [gather(c, perm) for c in cand]
+
+
+def merge_pass_runs(run_streams, tables, *, chunk0: int, nchunks: int,
+                    chunk_elems: int, buf_elems: int, blk: int = DEF_BLK,
+                    interpret: bool | None = None, ce: str = "roll",
+                    pipeline: bool = True, ncmp: int | None = None):
+    """One chunk range of a merge whose S input runs live in separate
+    buffers (ops/bigsort.py).
+
+    run_streams: list over ns streams (the key, val0, riders) of lists
+    over S runs of (L_s,) uint32 tensors; lengths may differ across runs
+    (trimmed prefixes), not across the streams of one run. tables: from
+    `merge_tables_exact_runs`, window starts already reduced by any trim.
+    Returns ns fresh (nchunks * chunk_elems,) uint32 tensors: the rows of
+    merged ranks [start(chunk0), start(chunk0) + nchunks * chunk_elems)
+    of these buffers, ordered by the first ncmp (default min(2, ns))
+    streams unsigned, then run, then position. No capacity: any key
+    distribution goes through the kernel."""
+    ncmp, lens, first, end, lo_rank, count = _runs_plan(
+        run_streams, tables, chunk0, nchunks, chunk_elems, blk, ncmp)
+    key = run_streams[0][0]
+    if key.device.type == "cpu":
+        return merge_pass_runs_plain(
+            run_streams, tables, chunk0=chunk0, nchunks=nchunks,
+            chunk_elems=chunk_elems, buf_elems=buf_elems, blk=blk, ncmp=ncmp)
+    S, ns = len(lens), len(run_streams)
+    ins = [run_streams[t][s] for s in range(S) for t in range(ns)]
+    outs = [torch.empty(count, dtype=torch.uint32, device=key.device)
+            for _ in range(ns)]
+    rows = ctypes.c_longlong * S
+    with torch.cuda.device(key.device):
+        fn = _build.function("lsd_merge_pass_runs", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_void_p])
+        stream = torch.cuda.current_stream(key.device).cuda_stream
+        _build.check(fn(_build.pointers(ins), _build.pointers(outs), S, ns,
+                        rows(*lens), rows(*first), rows(*end), lo_rank,
+                        count, ncmp, ctypes.c_void_p(stream)),
+                     "lsd_merge_pass_runs")
+    LAUNCHES["merge_pass_runs"] += 1
+    return outs

@@ -7,11 +7,12 @@ Every tile of ``tile_rows * 128`` rows is sorted ascending:
     JAX kernel casts val to int32 with no bias (tile_sort.py:207). The
     quirk only matters for tied keys with vals >= 2^31 and is kept so the
     port is bit exact (replaces `_bitonic_kernel`).
-  * `sort_tiles_multi`: by the key and the first ncmp-1 payloads,
-    compared unsigned; the other payloads ride (replaces
-    `_bitonic_multi_kernel`). The TPU network leaves the order of rows
-    tied on the compared words to the network; the port sorts riders
-    stably (by their row index), which is one of those orders.
+  * `sort_tiles_multi`: by the key and the first ncmp-1 payloads
+    (ncmp = 1, 2 or 3; 3 is the 64-bit (hi, lo, position) sort), compared
+    unsigned; the other payloads ride (replaces `_bitonic_multi_kernel`).
+    The TPU network leaves the order of rows tied on the compared words
+    to the network; the port sorts riders stably (by their row index),
+    which is one of those orders.
 
 On a CUDA tensor each wrapper launches the hand-written kernel in
 ``csrc/tile_sort.cu`` (its header says what bounds it on the H100 and how
@@ -26,7 +27,7 @@ import ctypes
 
 import torch
 
-from lsdradixsort_tpu_torch.core.convert import order_key, take_rows
+from lsdradixsort_tpu_torch.core.convert import row_order, take_rows
 from lsdradixsort_tpu_torch.kernels import _build
 
 LANES = 128
@@ -58,11 +59,7 @@ def _check_tiles(keys: torch.Tensor, streams, tile_rows: int) -> int:
 def _ncmp(values, ncmp) -> int:
     if ncmp is None:
         ncmp = 2 if values else 1
-    if ncmp == 3:
-        raise NotImplementedError(
-            "ncmp=3 (the 64-bit single-chain sort) lands with sort64, "
-            "ROADMAP Queue A item 5")
-    if ncmp not in (1, 2) or ncmp - 1 > len(values):
+    if ncmp not in (1, 2, 3) or ncmp - 1 > len(values):
         raise ValueError(f"ncmp={ncmp} with {len(values)} payloads")
     return ncmp
 
@@ -70,8 +67,7 @@ def _ncmp(values, ncmp) -> int:
 # --- plain PyTorch versions -------------------------------------------------
 
 def _sort_tiles_plain(words, riders, tile: int, flip1: bool = False):
-    key = order_key(words, flip1).view(-1, tile)
-    perm = torch.sort(key, dim=1, stable=True).indices
+    perm = row_order(words, tile, flip1)
     return [take_rows(s, perm) for s in (*words, *riders)]
 
 

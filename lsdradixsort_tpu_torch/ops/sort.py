@@ -14,11 +14,22 @@ every pass sees whole groups.
   * `sort`, `sort_kv`, `sort_with_ranks`, `argsort`: u32/i32/f32 keys,
     ascending or descending, through the order-preserving codecs of
     core/keycodec.py.
+  * `sort_lex`: stable multi-column sort, one stable pass per column,
+    least significant first.
+  * `sort64_with_ranks`: stable sort of 64-bit keys given as (hi, lo)
+    u32 planes: "merge" is one tile sort + merge chain comparing
+    (hi, lo, position) (the kernels' ncmp = 3), "merge2" two stable
+    passes, low plane then high.
+  * `sort_blocks_kv`: the (key, value) sort within each block, on the
+    tile sort kernel.
 
 Strategy "xla" — `jax.lax.sort` in the JAX package — is a stable
 `torch.sort` of the codes here, as are the other places where the JAX
 package sorts with `lax.sort` by design (the sentinel-collision path of
 `merge_sort_multi`, non-32-bit payloads in `sort_kv`, `sort_with_ranks`).
+The JAX package's in-graph skew fallbacks (a pass whose tables overflow
+sorts with `lax.sort`) have nothing to guard: the port's merge has no
+capacity.
 
 Strategy "composed" is the LSD radix pipeline, one stable pass per r-bit
 digit group, with the reference's pass structure (GPULSDRadixSort,
@@ -48,8 +59,8 @@ from lsdradixsort_tpu_torch.core.convert import (gather, i64_to_u32,
                                                  u32_to_i64)
 from lsdradixsort_tpu_torch.core.digits import get_digit, num_digit_groups
 from lsdradixsort_tpu_torch.kernels.histogram import block_digit_histograms
-from lsdradixsort_tpu_torch.kernels.merge import (KWAY, merge_pass,
-                                                  merge_pass_kv,
+from lsdradixsort_tpu_torch.kernels.merge import (KWAY, MAX_STREAMS,
+                                                  merge_pass, merge_pass_kv,
                                                   merge_pass_multi)
 from lsdradixsort_tpu_torch.kernels.scan import block_scans, exclusive_scan
 from lsdradixsort_tpu_torch.kernels.tile_sort import (LANES, sort_tiles,
@@ -218,6 +229,124 @@ def sort_with_ranks(keys: torch.Tensor, descending: bool = False):
 def argsort(keys: torch.Tensor, descending: bool = False) -> torch.Tensor:
     """Stable argsort of u32/i32/f32 keys (uint32 positions)."""
     return sort_with_ranks(keys, descending)[1]
+
+
+def sort_lex(key_cols, descending=False, strategy: str = "merge",
+             tile_log2: int = 15):
+    """Stable multi-column lexicographic sort: ORDER BY col0, col1, ...
+    (col0 primary). Returns (sorted_cols_tuple, original_positions).
+
+    key_cols: equal-length u32/i32/f32 columns. descending: one bool for
+    all columns or one per column. Ties across all columns break by
+    original position (stable).
+
+    One stable pass per column, least significant first (the reference's
+    LSD digit-group loop, LSDRadixSort.cu:62-69, with whole columns as
+    digits), on the merge engine or, with strategy="xla", a stable
+    torch.sort. Each pass sorts by one column with the current position
+    as the unique tiebreak, the running permutation and the other columns
+    riding; a pass moves at most MAX_STREAMS streams, and the columns past
+    that follow the pass's sorted position stream by a gather."""
+    cols = list(key_cols)
+    k = len(cols)
+    if k == 0:
+        raise ValueError("sort_lex needs at least one key column")
+    if isinstance(descending, bool):
+        descending = (descending,) * k
+    if len(descending) != k:
+        raise ValueError("descending must be a bool or one per column")
+    if strategy not in ("merge", "xla"):
+        raise ValueError(f"strategy {strategy!r}: pick 'merge' or 'xla'")
+    codes = [keycodec.encode(c, d) for c, d in zip(cols, descending)]
+    n = cols[0].shape[0]
+    dev = cols[0].device
+    perm = iota_u32(n, dev)
+    for i in reversed(range(k)):
+        others = [codes[j] for j in range(k) if j != i]
+        if strategy == "merge":
+            ride = others[:MAX_STREAMS - 3]
+            key_s, outs = _merge_sort_multi(
+                codes[i], [iota_u32(n, dev), perm, *ride], tile_log2)
+            order = u32_to_i64(outs[0])
+            perm = outs[1]
+            rest = outs[2:] + [gather(c, order)
+                               for c in others[MAX_STREAMS - 3:]]
+        else:
+            order = stable_order([codes[i]])
+            key_s, perm = gather(codes[i], order), gather(perm, order)
+            rest = [gather(c, order) for c in others]
+        it = iter(rest)
+        codes = [key_s if j == i else next(it) for j in range(k)]
+    decoded = tuple(keycodec.decode(c, col.dtype, d)
+                    for c, col, d in zip(codes, cols, descending))
+    return decoded, perm
+
+
+def sort64_with_ranks(key_hi: torch.Tensor, key_lo: torch.Tensor,
+                      dtype: str = "uint64", descending: bool = False,
+                      strategy: str = "merge", tile_log2: int = 15):
+    """Stable sort by a 64-bit key column given as (hi, lo) u32 planes.
+    Returns (sorted_hi, sorted_lo, original_positions as uint32). dtype is
+    the logical key type: "uint64", "int64" or "float64" (IEEE total
+    order, as the 32-bit codec).
+
+    "merge" (the default, as in the JAX package) is the single chain: one
+    tile sort and merge passes comparing (hi, lo, position), the kernels'
+    ncmp = 3 mode. "merge2" is two stable merge-engine passes, by the low
+    plane and then by the high plane (the reference's digit-group loop
+    with r = 32). "xla" is the same two passes as stable torch.sorts."""
+    chi, clo = keycodec.encode64(key_hi, key_lo, dtype, descending)
+    n = key_hi.shape[0]
+    dev = key_hi.device
+    if strategy == "merge":
+        hi_o, lo_o, perm = _merge1_sort64(chi, clo, tile_log2=tile_log2)
+    elif strategy == "merge2":
+        # the sorted position tiebreak of pass 1 is the pass-1 permutation
+        lo_s, (perm1, hi_s) = _merge_sort_multi(clo, [iota_u32(n, dev), chi],
+                                                tile_log2)
+        hi_o, (_, lo_o, perm) = _merge_sort_multi(
+            hi_s, [iota_u32(n, dev), lo_s, perm1], tile_log2)
+    elif strategy == "xla":
+        order = stable_order([clo])
+        lo_s, perm1, hi_s = gather(clo, order), order, gather(chi, order)
+        order = stable_order([hi_s])
+        hi_o, lo_o = gather(hi_s, order), gather(lo_s, order)
+        perm = i64_to_u32(perm1[order])
+    else:
+        raise ValueError(f"strategy {strategy!r}: pick 'merge', 'merge2' "
+                         f"or 'xla'")
+    hi_o, lo_o = keycodec.decode64(hi_o, lo_o, dtype, descending)
+    return hi_o, lo_o, perm
+
+
+def _merge1_sort64(chi: torch.Tensor, clo: torch.Tensor, tile_log2: int = 15):
+    """Single-chain stable 64-bit sort: one tile sort and merge passes
+    whose compares order by (hi, lo, position) — ncmp = 3 in both
+    kernels. Returns (hi, lo, positions). Pad rows are (0xFFFFFFFF,
+    0xFFFFFFFF, >= n) and positions are unique, so they sort last and the
+    order is total and stable by construction."""
+    n = chi.shape[0]
+    tile = 1 << tile_log2
+    npad = _padded_size(n, tile)
+    hi, (lo, pos) = sort_tiles_multi(
+        _pad(chi, npad), [_pad(clo, npad), iota_u32(npad, chi.device)],
+        tile_rows=tile // LANES, ncmp=3)
+    run = tile
+    while run < npad:
+        hi, (lo, pos) = merge_pass_multi(hi, [lo, pos], run, ncmp=3)
+        run *= KWAY
+    return hi[:n], lo[:n], pos[:n]
+
+
+def sort_blocks_kv(keys: torch.Tensor, values: torch.Tensor,
+                   block_size: int = 1 << 14):
+    """(key, value) sort within each `block_size` block on the tile sort
+    kernel (the reference's block-local sort, TestLSDBinaryRadixSort,
+    cu:423-477). The value breaks key ties as a signed int32, as in
+    `sort_tiles_kv`: unique values below 2^31 (row ids) make it a stable
+    key sort. block_size: a power-of-two multiple of 128; n a multiple of
+    block_size."""
+    return sort_tiles_kv(keys, values, tile_rows=block_size // LANES)
 
 
 # ---------------------------------------------------------------------------

@@ -118,7 +118,9 @@ def test_merge_pass_invalid_inputs_raise():
         T.merge_pass(k, 2 * L)                         # n % run_len != 0
     with pytest.raises(ValueError):
         T.merge_pass_multi(k, [k] * 8, L)              # too many streams
-    with pytest.raises(NotImplementedError):
-        T.merge_pass_multi(k, [k, k], L, ncmp=3)
+    with pytest.raises(ValueError):
+        T.merge_pass_multi(k, [k, k], L, ncmp=4)
+    with pytest.raises(ValueError):
+        T.merge_pass_multi(k, [k], L, ncmp=3)          # 2 streams
     with pytest.raises(ValueError):
         T.merge_pass_multi(k, [k[:L]], L)              # length mismatch

@@ -166,7 +166,9 @@ def test_invalid_inputs_raise():
         T.sort_tiles(k, tile_rows=3)                 # not a power of 2
     with pytest.raises(ValueError):
         T.sort_tiles(k.view(torch.int32), tile_rows=8)   # not uint32
-    with pytest.raises(NotImplementedError):
-        T.sort_tiles_multi(k, [k, k], tile_rows=8, ncmp=3)
+    with pytest.raises(ValueError):
+        T.sort_tiles_multi(k, [k, k], tile_rows=8, ncmp=4)
+    with pytest.raises(ValueError):
+        T.sort_tiles_multi(k, [k], tile_rows=8, ncmp=3)  # 2 streams
     with pytest.raises(ValueError):
         T.sort_tiles_multi(k, [], tile_rows=8, ncmp=2)
