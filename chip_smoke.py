@@ -26,10 +26,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    Then the scans at 2^22, 100000 and 131712 words of full-range u32
    (wraparound) and of i32, block_prefix_sums at blocks 128, 512 and
    2^13, and transpose_tiled at (128, 256) and (16384, 256). Then the
-   query kernels: compaction of 1-4 streams and the fill-forward under
-   masks of density 0, 0.01, 0.25 and 1 and one from each key family
-   (a compaction only on its defined first count rows), the fill-forward
-   at a ragged n, and probes (semi and not) of a 1024-key table in shared
+   run shuffles on the items their runs cover: fixed row runs of 8, 32,
+   128 and 512 rows, reversed and permuted, a run count no multiple of
+   runs_per_step, through the fixed path (run_rows overridden) and the
+   variable path; variable runs of random lengths into permuted disjoint
+   destinations; at 2^18 rows one run of 2^17 + 1000 rows, of which only
+   the last 1000 are copied (the TPU's length cut), beside a run over
+   the rows a whole copy would hit; word runs of random lengths at
+   unaligned offsets with max_len_bits = 10. Then the query kernels:
+   compaction of 1-4 streams and the fill-forward under masks of density
+   0, 0.01, 0.25 and 1 and one from each key family (a compaction only
+   on its defined first count rows), the fill-forward at a ragged n,
+   and probes (semi and not) of a 1024-key table in shared
    memory, a 50,000-key table past it, and one with duplicate keys. Then
    the query entry points phase 3 does not run (bench/query.py
    entry_point_ops: NOT IN, the vmem fallbacks past a chain, lookups in
@@ -59,13 +67,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    against an independent plain reference, with its peak device memory
    and the kernel launches of one query; then window_rank of those 10^8
    rows (partition by the group keys, order by the filter keys), each
-   method against a plain reference (a path of its own).
+   method against a plain reference (a path of its own). The benchmark
+   CLI (a path of its own): `bench/runner.py` run_suite("all", 24,
+   verify=True), every record of every suite verified against the numpy
+   golden models.
 4. Launch counters: every kernel launched on its path in phase 3 (each
    path's counts set to 0 just before it: the sort kernels during the
    sorts, merge_pass_runs with the segment sorts' kernels during the
    chunked sorts, the tile sort and merge pass during the 64-bit chain,
    the three query kernels during the queries, the fill-forward with
-   the sort kernels during the window ranks), and no plain version ran.
+   the sort kernels during the window ranks, shuffle_row_runs with the
+   sort, histogram, scan and query kernels during the bench runner), and
+   no plain version ran. shuffle_elem_runs has no caller on any path, in
+   either package: its launches are 0.
 5. Each kernel against its plain version at the main paths' shapes, bit
    for bit, then both timed (CUDA events, median of 5 after a warm-up),
    with one PyTorch call computing the same function beside them where
@@ -84,7 +98,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    probe of the vmem join's 1024-key table by 10^8 keys (and semi, beside
    torch.isin), and the 50,000-key table's probe; their bounds count the
    bytes the function needs from that run's data (a compaction's selected
-   rows, the fill-forward's flagged rows). Then the sorts:
+   rows, the fill-forward's flagged rows); shuffle_row_runs on the
+   runner's 2^20 rows in reversed fixed runs of 32, 128, 8 and 512 rows
+   (beside one index_copy_), then the same through the variable path,
+   and shuffle_elem_runs on 2^27 words in runs of random length below
+   2^16 at unaligned offsets. Then the sorts:
    merge keys and kv, torch.sort, sort64_with_ranks at 2^27 with each
    strategy, the composed sort at each r and kv at r = 8 (2^27), and at
    2^30 the composed r = 4 sort beside merge_sort_keys, the scan and the
@@ -123,6 +141,7 @@ def main() -> int:
     from lsdradixsort_tpu_torch.core.timing import card_label, time_fn
     from lsdradixsort_tpu_torch.entry import entry
     from lsdradixsort_tpu_torch.bench import query as Q
+    from lsdradixsort_tpu_torch.bench import runner as RN
     from lsdradixsort_tpu_torch.kernels import _build
     from lsdradixsort_tpu_torch.kernels import compaction as CP
     from lsdradixsort_tpu_torch.kernels import fill_forward as FF
@@ -130,6 +149,7 @@ def main() -> int:
     from lsdradixsort_tpu_torch.kernels import histogram as H
     from lsdradixsort_tpu_torch.kernels import merge as M
     from lsdradixsort_tpu_torch.kernels import scan as SC
+    from lsdradixsort_tpu_torch.kernels import shuffle as SH
     from lsdradixsort_tpu_torch.kernels import tile_sort as TS
     from lsdradixsort_tpu_torch.kernels import transpose as TR
     from lsdradixsort_tpu_torch.ops import bigsort as B
@@ -196,7 +216,8 @@ def main() -> int:
                               "exclusive_scan_hierarchical",
                               "block_prefix_sums", "transpose_tiled",
                               "compact_stream_multi", "fill_forward_last",
-                              "probe_table")}
+                              "probe_table", "shuffle_row_runs",
+                              "shuffle_elem_runs")}
 
     def compare(kernel, label, got, want):
         for i, (g, w) in enumerate(zip(got, want, strict=True)):
@@ -370,6 +391,99 @@ def main() -> int:
         a = random_keys(shape[0] * shape[1], 10, dev, dtype=dt).view(shape)
         compare("transpose_tiled", f"{shape} {dt}",
                 [TR.transpose_tiled(a, tile)], [TR.transpose_plain(a)])
+    # the run shuffles, on the items the runs cover (the rest is
+    # unspecified): fixed row runs of 8-512 rows, reversed and permuted,
+    # with a run count that is no multiple of runs_per_step (the fixed
+    # path with run_rows 3, which fixed_rows overrides, and the variable
+    # path); variable runs of random lengths into permuted disjoint
+    # destinations; the length cut at 2^18 rows (mb = 16: a run of 2^17 +
+    # 1000 rows copies only its last 1000, beside a run that covers the
+    # rows a copy of the whole run would hit); word runs of random lengths
+    # (some past max_len_bits = 10, so cut) at unaligned offsets
+    sgen = torch.Generator(device=dev).manual_seed(31)
+
+    def covered(dst, start, end, size):
+        """Items [dst + start, dst + end) of disjoint runs, as a mask."""
+        edge = torch.zeros(size + 1, dtype=torch.int64, device=dev)
+        one_each = torch.ones(dst.shape[0], dtype=torch.int64, device=dev)
+        edge.index_add_(0, (dst + start).long(), one_each)
+        edge.index_add_(0, (dst + end).long(), -one_each)
+        return edge.cumsum(0)[:size] > 0
+
+    def shuffle_case(kname, label, fn, plain_fn, args, mask):
+        got = fn(*args)
+        compare(kname, label, [got.view(torch.int32)[mask]],
+                [plain_fn(*args).view(torch.int32)[mask]])
+        return got
+
+    def packed(lens, gap_max):
+        """Run starts packed in order, with random gaps below gap_max."""
+        gaps = torch.randint(0, gap_max, lens.shape, generator=sgen,
+                             device=dev)
+        return torch.cumsum(lens + gaps, 0) - lens
+
+    def permuted_starts(lens, gap_max):
+        order = torch.randperm(lens.shape[0], generator=sgen, device=dev)
+        starts = torch.empty_like(lens)
+        starts[order] = packed(lens[order], gap_max)
+        return starts
+
+    rows2 = n2 // SH.LANES
+    xr = random_keys(n2, 32, dev).view(rows2, SH.LANES)
+    for run in (8, 32, 128, 512):
+        nch = rows2 // run - 3
+        src = torch.arange(nch, dtype=torch.int32, device=dev) * run
+        mask = torch.arange(rows2, device=dev) < nch * run
+        for order, slot in (
+                ("reversed", torch.arange(nch - 1, -1, -1, device=dev)),
+                ("permuted", torch.randperm(nch, generator=sgen,
+                                            device=dev))):
+            dst = (slot * run).to(torch.int32)
+            got = shuffle_case(
+                "shuffle_row_runs", f"{order} runs of {run} rows, fixed",
+                lambda *a, f=run: SH.shuffle_row_runs(*a, fixed_rows=f),
+                lambda *a, f=run: SH.shuffle_row_runs_plain(*a, fixed_rows=f),
+                (xr, src, dst, torch.full_like(src, 3), rows2), mask)
+            if order == "reversed":
+                check_keys(got[:nch * run], xr.view(torch.int32)[:nch * run]
+                           .view(nch, run, -1).flip(0).reshape(-1, SH.LANES),
+                           f"shuffle_row_runs reversed runs of {run} rows")
+            shuffle_case("shuffle_row_runs", f"{order} runs of {run} rows, "
+                         f"variable", SH.shuffle_row_runs,
+                         SH.shuffle_row_runs_plain,
+                         (xr, src, dst, torch.full_like(src, run), rows2),
+                         mask)
+    lens = torch.randint(1, 160, (rows2 // 164,), generator=sgen, device=dev)
+    src, dst = packed(lens, 1), permuted_starts(lens, 1) + 5
+    shuffle_case("shuffle_row_runs", f"{lens.shape[0]} variable runs, "
+                 f"permuted",
+                 SH.shuffle_row_runs, SH.shuffle_row_runs_plain,
+                 (xr, src.int(), dst.int(), lens.int(), rows2),
+                 covered(dst, 0, lens, rows2))
+    big_rows, cut = 1 << 18, 1 << 17
+    xb = random_keys(big_rows * SH.LANES, 33, dev).view(big_rows, SH.LANES)
+    src = torch.tensor([7, cut], device=dev)
+    dst = torch.tensor([100_000, 100_000], device=dev)
+    lens = torch.tensor([cut + 1000, cut - 1], device=dev)
+    start = torch.tensor([cut, 0], device=dev)
+    got = shuffle_case("shuffle_row_runs", "2^18 rows, a run of 2^17 + 1000",
+                       SH.shuffle_row_runs, SH.shuffle_row_runs_plain,
+                       (xb, src.int(), dst.int(), lens.int(), big_rows),
+                       covered(dst, start, lens, big_rows))
+    check_keys(got[100_000 + cut:100_000 + cut + 1000],
+               xb[7 + cut:7 + cut + 1000], "shuffle_row_runs 2^17 + 1000 cut")
+    del xb, got
+    lens = torch.randint(0, 3000, (n2 // 2100,), generator=sgen, device=dev)
+    src, dst = packed(lens, 7), permuted_starts(lens, 6)
+    shuffle_case("shuffle_elem_runs", f"{lens.shape[0]} runs < 3000 words, "
+                 f"unaligned, max_len_bits=10",
+                 lambda *a: SH.shuffle_elem_runs(*a, max_len_bits=10),
+                 lambda *a: SH.shuffle_elem_runs_plain(*a, max_len_bits=10),
+                 (pay, src.int(), dst.int(), lens.int(), n2),
+                 covered(dst, lens & ~2047, lens, n2))
+    print(f"phase 2: run shuffles bit exact on the covered items "
+          f"(max_abs_err {max_err['shuffle_row_runs']}, "
+          f"{max_err['shuffle_elem_runs']})")
     # the query kernels: compaction of 1-4 streams and fill-forward under
     # masks of every density and a mask from each key family (only the
     # first count rows of a compaction are defined); probes of a table in
@@ -536,7 +650,7 @@ def main() -> int:
     phase_done(2)
 
     # ---- 3. main paths end to end -----------------------------------------
-    modules = (TS, M, H, SC, TR, CP, FF, HT)
+    modules = (TS, M, H, SC, TR, CP, FF, HT, SH)
 
     def reset_counts():
         for mod in modules:
@@ -682,13 +796,33 @@ def main() -> int:
         del got
     print(f"phase 3: window_rank row_number/rank/dense_rank n={qdata['n']} "
           f"(partition by group keys, order by filter keys): verified")
+
+    # the benchmark CLI (a path of its own): every suite of bench/runner.py
+    # at n = 2^24 with --verify, against the numpy golden models
+    reset_counts()
+    t_cli = time.perf_counter()
+    cli_records, cli_failed = RN.run_suite("all", 24, verify=True)
+    torch.cuda.synchronize()
+    runner_launches, runner_plain = read_counts()
+    unverified = [r.line() for r in cli_records if r.verified is not True]
+    if cli_failed or unverified:
+        raise AssertionError(f"bench runner: failed suites {cli_failed}, "
+                             f"unverified records {unverified}")
+    cli_suites = sorted({r.suite.split("/")[0] for r in cli_records})
+    if cli_suites != sorted(RN.SUITES):
+        raise AssertionError(f"bench runner: records of {cli_suites} only")
+    print(f"phase 3: bench runner all --n 24 --verify: {len(cli_records)} "
+          f"records of {cli_suites}, every one verified, in "
+          f"{time.perf_counter() - t_cli:.1f} s")
     phase_done(3)
 
     # ---- 4. launch counters -----------------------------------------------
     query_kernels = ("compact_stream_multi", "fill_forward_last",
                      "probe_table")
+    shuffle_kernels = ("shuffle_row_runs", "shuffle_elem_runs")
     sort_kernels = tuple(k for k in sort_launches
-                         if k not in query_kernels + ("merge_pass_runs",))
+                         if k not in query_kernels + shuffle_kernels
+                         + ("merge_pass_runs",))
     # each path, its counts, and the kernels it must have launched
     paths = {
         "sort": (sort_launches, sort_plain, sort_kernels),
@@ -701,6 +835,11 @@ def main() -> int:
         "window_rank": (window_launches, window_plain_calls,
                         ("sort_tiles_multi", "merge_pass_multi",
                          "fill_forward_last")),
+        "bench runner": (runner_launches, runner_plain,
+                         ("shuffle_row_runs", "sort_tiles", "sort_tiles_kv",
+                          "merge_pass_multi", "block_digit_histograms",
+                          "exclusive_scan", "exclusive_scan_hierarchical")
+                         + query_kernels),
     }
     for pname, (lc, pc, need) in paths.items():
         print(f"phase 4: {pname} path: kernel launches "
@@ -712,8 +851,10 @@ def main() -> int:
                                  f"path: {idle}")
         if any(pc.values()):
             raise AssertionError(f"{pname}: plain versions ran")
+    # shuffle_elem_runs has no caller on any path, in either package
     launches = {k: query_launches[k] if k in query_kernels
                 else chunked_launches[k] if k == "merge_pass_runs"
+                else runner_launches[k] if k in shuffle_kernels
                 else sort_launches[k] for k in sort_launches}
     phase_done(4)
 
@@ -983,6 +1124,49 @@ def main() -> int:
     print(f"phase 5: every query-path kernel bit exact against its plain "
           f"version at n={qn} (max_abs_err {max_err})")
 
+    # the run shuffles at the runner's shape, n = 2^27 words (2^20 rows):
+    # the suite's reversed fixed runs of 32 and 128 rows, then its sweep's
+    # 8 and 512, then the same runs through the variable path; and word
+    # runs of random lengths below 2^16 at unaligned offsets, packed into
+    # a permuted order. Bound: every copied word read and written once.
+    # Library, for the fixed runs: one index_copy_ of the runs as rows
+    rows5 = n // SH.LANES
+    x5 = keys.view(rows5, SH.LANES)
+    for fixed_path in (True, False):
+        for run in (32, 128, 8, 512):
+            nch = rows5 // run
+            src = torch.arange(nch, dtype=torch.int32, device=dev) * run
+            dst = src.flip(0)
+            library = None
+            if fixed_path:
+                library = (lambda idx=(dst // run).long(), nch=nch,
+                           o=torch.empty_like(x5.view(torch.int32)):
+                           o.view(nch, -1).index_copy_(
+                               0, idx, x5.view(torch.int32).view(nch, -1)))
+            f = run if fixed_path else 0
+            check_and_time(
+                "shuffle_row_runs",
+                f"{'fixed' if fixed_path else 'variable'} runs of {run} "
+                f"rows, reversed",
+                lambda *a, f=f: SH.shuffle_row_runs(*a, fixed_rows=f),
+                lambda *a, f=f: SH.shuffle_row_runs_plain(*a, fixed_rows=f),
+                (x5, src, dst, torch.full_like(src, run), rows5), 8 * n, one,
+                library)
+            del library
+    lens = torch.randint(1, 1 << 16, (n >> 14,), generator=sgen, device=dev)
+    lens = lens[:int((torch.cumsum(lens, 0) <= n).sum())]
+    src, dst = packed(lens, 1), permuted_starts(lens, 1)
+    words = int(lens.sum())
+    check_and_time("shuffle_elem_runs",
+                   f"{lens.shape[0]} runs of random length < 2^16, unaligned",
+                   SH.shuffle_elem_runs, SH.shuffle_elem_runs_plain,
+                   (keys, src.int(), dst.int(), lens.int(), n), 8 * words,
+                   one, elems=words, defined=words)
+    del x5, src, dst, lens
+    print(f"phase 5: both run shuffles bit exact against their plain "
+          f"versions at n=2^27 (max_abs_err {max_err['shuffle_row_runs']}, "
+          f"{max_err['shuffle_elem_runs']})")
+
     # the sorts: composed at each r and kv, then the reference's 2^30
     for r in (1, 2, 4, 8):
         report(f"composed sort r={r} block 2^13",
@@ -1076,6 +1260,10 @@ def main() -> int:
                               "lsdradixsort_tpu/kernels/fill_forward.py:114"),
         "probe_table": ("lsdradixsort_tpu_torch/csrc/hash_table.cu",
                         "lsdradixsort_tpu/kernels/hash_table.py:135"),
+        "shuffle_elem_runs": ("lsdradixsort_tpu_torch/csrc/shuffle.cu",
+                              "lsdradixsort_tpu/kernels/shuffle.py:175"),
+        "shuffle_row_runs": ("lsdradixsort_tpu_torch/csrc/shuffle.cu",
+                             "lsdradixsort_tpu/kernels/shuffle.py:235"),
     }
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

@@ -10,18 +10,23 @@ PyTorch version instead.
 
 Layer map:
   core/      key codecs, digit math, numpy <-> tensor conversion, data
-             generation, CUDA-event timing, the roofline
+             generation, CUDA-event and host timing, the roofline,
+             torch.profiler tracing
   kernels/   tile sort, 8-way merge passes (grouped runs, and runs in
              separate buffers for the chunked sort), digit histogram,
              exclusive scans, tiled transpose, stream compaction,
-             fill-forward, hash-table probe (CUDA + plain versions)
+             fill-forward, hash-table probe, run shuffles (CUDA + plain
+             versions)
+  golden/    numpy golden models (the bench runner's oracles)
+  native/    ctypes bindings of the repo-root native/ C++ host library
   ops/       the sort operators (merge_sort_*, sort, sort_kv, sort_lex,
              sort64_with_ranks, sort_blocks_kv, ...), the chip-scale
              chunked sort (bigsort), the query operators (filter, group
              by, join, top-k, unique) and window ranks
   utils/     bit-exact verification helpers
-  bench/     the flagship benchmark (bench/flagship.py) and the query
-             benchmark (bench/query.py)
+  bench/     the benchmark CLI (`python -m lsdradixsort_tpu_torch.bench`,
+             bench/runner.py), the flagship benchmark (bench/flagship.py)
+             and the query benchmark (bench/query.py)
 """
 from lsdradixsort_tpu_torch.kernels.fill_forward import fill_forward_last
 from lsdradixsort_tpu_torch.kernels.histogram import (block_digit_histograms,
@@ -30,6 +35,7 @@ from lsdradixsort_tpu_torch.kernels.merge import (merge_pass, merge_pass_kv,
                                                   merge_pass_multi)
 from lsdradixsort_tpu_torch.kernels.scan import (block_prefix_sums,
                                                  exclusive_scan)
+from lsdradixsort_tpu_torch.kernels.shuffle import shuffle_row_runs
 from lsdradixsort_tpu_torch.kernels.tile_sort import (sort_tiles,
                                                       sort_tiles_kv,
                                                       sort_tiles_multi)
@@ -55,7 +61,8 @@ __all__ = [
     "sort", "sort_kv", "argsort", "sort_with_ranks",
     "sort64_with_ranks", "sort_lex", "sort_blocks_kv",
     "merge_sort_keys", "merge_sort_with_ranks", "merge_sort_multi",
-    "sort_tiles", "sort_tiles_kv", "sort_tiles_multi", "fill_forward_last",
+    "sort_tiles", "sort_tiles_kv", "sort_tiles_multi", "shuffle_row_runs",
+    "fill_forward_last",
     "merge_pass", "merge_pass_kv", "merge_pass_multi",
     "digit_histogram", "block_digit_histograms",
     "exclusive_scan", "block_prefix_sums",

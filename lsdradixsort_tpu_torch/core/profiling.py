@@ -1,0 +1,56 @@
+"""Profiling and tracing — the port of lsdradixsort_tpu/core/profiling.py.
+
+The JAX package captures xprof traces with `jax.profiler`; here the same
+helpers sit on `torch.profiler`, whose Chrome/TensorBoard trace shows the
+host ops and the CUDA kernels on one timeline (the reference's cudaEvent
+pairs and Nsight captures, SURVEY.md §5).
+
+    from lsdradixsort_tpu_torch.core.profiling import annotate, trace
+
+    with trace("/tmp/lsd_trace"):          # *.pt.trace.json written here
+        with annotate("sort_pass_0"):
+            out = sort_kv(keys, vals)
+        torch.cuda.synchronize()
+
+Per-kernel device times and the idle share of one run are
+`bench/flagship.py` `profile_kernels`.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Trace the enclosed computation with torch.profiler (CPU activity,
+    and CUDA when a card is present) and write a Chrome/TensorBoard trace
+    into `log_dir` when the block ends (open it with
+    `tensorboard --logdir <log_dir>` or chrome://tracing)."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """Named region in the profiler timeline (record_function)."""
+    with torch.profiler.record_function(name):
+        yield
+
+
+@contextlib.contextmanager
+def stopwatch(name: str, sink=print):
+    """Wall-clock bracket for quick ad-hoc timing: a coarse host-side
+    bracket — the caller synchronises on its own results (CUDA work is
+    asynchronous) for exact numbers."""
+    t0 = time.perf_counter()
+    yield
+    sink(f"[stopwatch] {name}: {(time.perf_counter() - t0) * 1e3:.3f} ms")

@@ -5,12 +5,14 @@ Counterpart of lsdradixsort_tpu/core/timing.py. As in the reference
 brackets device work only: each run is enqueued between its own two
 events on the current stream, and the elapsed times are read after one
 synchronise. PyTorch dispatches straight to the card, so there is no
-dispatch latency to amortise.
+dispatch latency to amortise. `time_host` times host functions (the
+CPU-golden bar of the bench runner) on the wall clock.
 """
 from __future__ import annotations
 
 import statistics
 import subprocess
+import time
 from dataclasses import dataclass
 
 import torch
@@ -54,3 +56,16 @@ def time_fn(fn, *args, iters: int = 5, warmup: int = 1) -> Timing:
     torch.cuda.synchronize()
     ms = statistics.median(s.elapsed_time(e) for s, e in events)
     return Timing(seconds=ms / 1e3)
+
+
+def time_host(fn, *args, iters: int = 3) -> Timing:
+    """Best wall-clock time of a host (numpy / native) function over
+    `iters` runs after one warm-up run: the CPU-golden bar (reference
+    pattern: LSDRadixSort.cu:984-990)."""
+    fn(*args)
+    best = float("inf")
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn(*args)
+        best = min(best, time.perf_counter() - t0)
+    return Timing(seconds=best)

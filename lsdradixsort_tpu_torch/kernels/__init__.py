@@ -11,6 +11,8 @@ from lsdradixsort_tpu_torch.kernels.merge import (merge_pass,  # noqa: F401
                                                   merge_pass_multi)
 from lsdradixsort_tpu_torch.kernels.scan import (  # noqa: F401
     block_prefix_sums, exclusive_scan, exclusive_scan_hierarchical)
+from lsdradixsort_tpu_torch.kernels.shuffle import (  # noqa: F401
+    shuffle_row_runs)
 from lsdradixsort_tpu_torch.kernels.tile_sort import (sort_tiles,  # noqa: F401
                                                       sort_tiles_kv,
                                                       sort_tiles_multi)
