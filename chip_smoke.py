@@ -100,7 +100,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    bytes the function needs from that run's data (a compaction's selected
    rows, the fill-forward's flagged rows); shuffle_row_runs on the
    runner's 2^20 rows in reversed fixed runs of 32, 128, 8 and 512 rows
-   (beside one index_copy_), then the same through the variable path,
+   and the same through the variable path, each beside one index_copy_,
    and shuffle_elem_runs on 2^27 words in runs of random length below
    2^16 at unaligned offsets. Then the sorts:
    merge keys and kv, torch.sort, sort64_with_ranks at 2^27 with each
@@ -1129,7 +1129,8 @@ def main() -> int:
     # 8 and 512, then the same runs through the variable path; and word
     # runs of random lengths below 2^16 at unaligned offsets, packed into
     # a permuted order. Bound: every copied word read and written once.
-    # Library, for the fixed runs: one index_copy_ of the runs as rows
+    # Library: one index_copy_ of the runs as rows; the variable path's
+    # runs have equal lengths here, so the same call computes its output
     rows5 = n // SH.LANES
     x5 = keys.view(rows5, SH.LANES)
     for fixed_path in (True, False):
@@ -1137,12 +1138,10 @@ def main() -> int:
             nch = rows5 // run
             src = torch.arange(nch, dtype=torch.int32, device=dev) * run
             dst = src.flip(0)
-            library = None
-            if fixed_path:
-                library = (lambda idx=(dst // run).long(), nch=nch,
-                           o=torch.empty_like(x5.view(torch.int32)):
-                           o.view(nch, -1).index_copy_(
-                               0, idx, x5.view(torch.int32).view(nch, -1)))
+            library = (lambda idx=(dst // run).long(), nch=nch,
+                       o=torch.empty_like(x5.view(torch.int32)):
+                       o.view(nch, -1).index_copy_(
+                           0, idx, x5.view(torch.int32).view(nch, -1)))
             f = run if fixed_path else 0
             check_and_time(
                 "shuffle_row_runs",

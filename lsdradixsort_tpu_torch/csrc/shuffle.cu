@@ -68,12 +68,14 @@ __device__ Span clip_run(long long i, const int* __restrict__ src,
   return {s + lo, d + lo, hi - lo};
 }
 
-// out[0, n) = a[0, n) in 16-byte vectors, by the whole block.
-__device__ __forceinline__ void copy_vecs(const uint4* __restrict__ a,
-                                          uint4* __restrict__ b, long long n) {
+// b[0, n) = a[0, n) by the whole block, kUnroll loads in flight a thread:
+// T is uint4 (16-byte vectors) or uint32_t (words).
+template <typename T>
+__device__ __forceinline__ void copy_vecs(const T* __restrict__ a,
+                                          T* __restrict__ b, long long n) {
   long long i = threadIdx.x;
   for (; i + (kUnroll - 1) * kThreads < n; i += kUnroll * kThreads) {
-    uint4 v[kUnroll];
+    T v[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) v[u] = a[i + u * kThreads];
 #pragma unroll
@@ -118,15 +120,7 @@ shuffle_elems(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
     if (t < n) b[t] = a[t];
     return;
   }
-  long long i = threadIdx.x;
-  for (; i + (kUnroll - 1) * kThreads < n; i += kUnroll * kThreads) {
-    uint32_t v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) v[u] = a[i + u * kThreads];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) b[i + u * kThreads] = v[u];
-  }
-  for (; i < n; i += kThreads) b[i] = a[i];
+  copy_vecs(a, b, n);
 }
 
 }  // namespace

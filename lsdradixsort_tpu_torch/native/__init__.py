@@ -16,7 +16,6 @@ if the .so is missing and a toolchain is present.
 from __future__ import annotations
 
 import ctypes
-import os
 import subprocess
 from pathlib import Path
 
@@ -44,7 +43,7 @@ def _load():
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not _SO_PATH.exists() and os.environ.get("LSD_NATIVE_BUILD", "1") == "1":
+    if not _SO_PATH.exists():
         _try_build()
     if not _SO_PATH.exists():
         return None
