@@ -22,23 +22,31 @@ Phases, in order; any failure exits non-zero and prints no result:
    JAX fallback's crash, ROADMAP Queue C 1), each merge also against a
    stable torch.sort; digit histograms at (r, group) in (1,0), (2,5),
    (4,3), (8,0), (8,3) and blocks 128, 1024, 2^13, 2^17, and
-   digit_histogram.
+   digit_histogram; the device-memory histogram at r = 13 and 16.
+   The merge-path partition (merge_path_splits) and merge against their
+   plain versions on all-equal, 97-distinct and uniform keys, with 1, 2,
+   3 and 8 streams at every ncmp they allow, runs of 2^15, 1000 and 3
+   rows and a last group of 5 runs, and a tail of 0xFFFFFFFF padding.
    Then the scans at 2^22, 100000 and 131712 words of full-range u32
    (wraparound) and of i32, block_prefix_sums at blocks 128, 512 and
-   2^13, and transpose_tiled at (128, 256) and (16384, 256). Then the
-   run shuffles on the items their runs cover: fixed row runs of 8, 32,
+   2^13; exclusive_scan at n = 0, 1, a scan tile and a CTA's words, each
+   - 1, + 0 and + 1, and 2^27 + 13 (20 times), of uniform and of
+   all-0xFFFFFFFF words, and the scans of 8- and 16-bit dtypes; and
+   transpose_tiled at (128, 256) and (16384, 256). Then the run shuffles on the items their runs cover: fixed row runs of 8, 32,
    128 and 512 rows, reversed and permuted, a run count no multiple of
    runs_per_step, through the fixed path (run_rows overridden) and the
    variable path; variable runs of random lengths into permuted disjoint
    destinations; at 2^18 rows one run of 2^17 + 1000 rows, of which only
    the last 1000 are copied (the TPU's length cut), beside a run over
    the rows a whole copy would hit; word runs of random lengths at
-   unaligned offsets with max_len_bits = 10. Then the query kernels:
-   compaction of 1-4 streams and the fill-forward under masks of density
-   0, 0.01, 0.25 and 1 and one from each key family (a compaction only
-   on its defined first count rows), the fill-forward at a ragged n,
-   and probes (semi and not) of a 1024-key table in shared
-   memory, a 50,000-key table past it, and one with duplicate keys. Then
+   unaligned offsets with max_len_bits = 10; an x that is not 16-byte
+   aligned, int32 and float32 rows and float32 words (moved as their
+   bits). Then the query kernels: compaction of 1-4 streams and the
+   fill-forward under masks of density 0, 0.01, 0.25 and 1 and one from
+   each key family (a compaction only on its defined first count rows),
+   compaction of 9 and 16 streams, the fill-forward at a ragged n, and
+   probes (semi and not) of a 1024-key table in shared memory, a
+   50,000-key table past it, and one with duplicate keys. Then
    the query entry points phase 3 does not run (bench/query.py
    entry_point_ops: NOT IN, the vmem fallbacks past a chain, lookups in
    every engine, 64-bit keys, MIN/MAX/COUNT, hash_join_multi's options,
@@ -77,25 +85,30 @@ Phases, in order; any failure exits non-zero and prints no result:
    chunked sorts, the tile sort and merge pass during the 64-bit chain,
    the three query kernels during the queries, the fill-forward with
    the sort kernels during the window ranks, shuffle_row_runs with the
-   sort, histogram, scan and query kernels during the bench runner), and
-   no plain version ran. shuffle_elem_runs has no caller on any path, in
-   either package: its launches are 0.
+   sort, histogram, scan and query kernels during the bench runner; the
+   merge-path partition wherever a merge pass runs;
+   exclusive_scan_hierarchical only in the runner, whose scan/hier suite
+   is its one caller), and no plain version ran. shuffle_elem_runs has
+   no caller on any path, in either package: its launches are 0.
 5. Each kernel against its plain version at the main paths' shapes, bit
    for bit, then both timed (CUDA events, median of 5 after a warm-up),
    with one PyTorch call computing the same function beside them where
    there is one: the tile sorts at n = 2^27 (1, 2 and 3 streams) and
    every merge pass of the chain (run 2^15, 2^18, 2^21, 2^24), each fed
-   the kernel's previous output, and the same at ncmp = 3 (hi, lo,
-   position); merge_pass_runs on each range of the 2^30 chunked pass
-   (2 streams, untrimmed runs), beside a stable torch.sort of the 2^30
-   int64 (key, position) words; the histogram of 2^27 keys at each r,
-   and of 2^27 all-equal keys at r = 8 and 1; exclusive_scan of each r's
-   digit-major histogram and of 2^27 words;
+   the kernel's previous output, its partition (merge_path_splits) timed
+   on its own beside it (the pass's time includes it), and the same at
+   ncmp = 3 (hi, lo, position); merge_pass_runs on each range of the
+   2^30 chunked pass (2 streams, untrimmed runs), beside a stable
+   torch.sort of the 2^30 int64 (key, position) words; the histogram of
+   2^27 keys at each r, and of 2^27 all-equal keys at r = 8 and 1;
+   exclusive_scan of each r's digit-major histogram (beside
+   torch.cumsum) and of 2^27 words; block_prefix_sums of each r's
+   histogram rows (beside torch.cumsum(dim=1));
    exclusive_scan_hierarchical and block_prefix_sums at 2^27;
    transpose_tiled at (16384, 256) and (8192, 16384); the compaction of
    filter_kv (2 streams) and of the vmem hash_join (3 streams) at 10^8
-   rows, the fill-forward of hash_join's 1.1 * 10^8 sorted rows, the
-   probe of the vmem join's 1024-key table by 10^8 keys (and semi, beside
+   rows (beside torch.stack(streams, 1)[mask]), the fill-forward of
+   hash_join's 1.1 * 10^8 sorted rows, the probe of the vmem join's 1024-key table by 10^8 keys (and semi, beside
    torch.isin), and the 50,000-key table's probe; their bounds count the
    bytes the function needs from that run's data (a compaction's selected
    rows, the fill-forward's flagged rows); shuffle_row_runs on the
@@ -135,10 +148,12 @@ def main() -> int:
                                                        torch_sort_u32)
     from lsdradixsort_tpu_torch.core import keycodec, roofline
     from lsdradixsort_tpu_torch.core.convert import (i64_to_u32, iota_u32,
-                                                     order_key, u32_to_i64)
+                                                     order_key, row_order,
+                                                     take_rows, u32_to_i64)
     from lsdradixsort_tpu_torch.core.datagen import (random_keys,
                                                      random_keys_bounded)
-    from lsdradixsort_tpu_torch.core.timing import card_label, time_fn
+    from lsdradixsort_tpu_torch.core import timing
+    from lsdradixsort_tpu_torch.core.timing import card_label
     from lsdradixsort_tpu_torch.entry import entry
     from lsdradixsort_tpu_torch.bench import query as Q
     from lsdradixsort_tpu_torch.bench import runner as RN
@@ -162,6 +177,11 @@ def main() -> int:
 
     dev = torch.device("cuda")
     clock = [time.perf_counter()]
+
+    def time_fn(fn, *args):
+        """Median of 5 CUDA-event timings after a warm-up, as every time
+        PERF.md records from this script (time_fn's default is 10)."""
+        return timing.time_fn(fn, *args, iters=5)
 
     def phase_done(k):
         now = time.perf_counter()
@@ -210,7 +230,8 @@ def main() -> int:
         }
 
     max_err = {k: 0 for k in ("sort_tiles", "sort_tiles_kv",
-                              "sort_tiles_multi", "merge_pass_multi",
+                              "sort_tiles_multi", "merge_path_splits",
+                              "merge_pass_multi",
                               "merge_pass_runs",
                               "block_digit_histograms", "exclusive_scan",
                               "exclusive_scan_hierarchical",
@@ -299,6 +320,47 @@ def main() -> int:
                         key_and_list(M.merge_pass_multi_plain(
                             k3, v3, 1 << run_log2, ncmp=3)))
     del lo3
+    # the merge-path merge's edges: all-equal keys, few uniques and
+    # uniform keys; 1, 2, 3 and 8 streams at every ncmp they allow; runs of
+    # a tile multiple, of 1000 rows (below a tile) and of 3 rows, with a
+    # last group of 5 runs; a tail of 0xFFFFFFFF padding (the rows
+    # merge_sort pads with). The CUDA partition against its plain version
+    # on each, then the pass.
+    def merge_case(label, streams, run, ncmp):
+        perm = row_order(streams[:ncmp], run)
+        streams = [take_rows(t, perm) for t in streams]
+        k, vs = streams[0], streams[1:]
+        compare("merge_path_splits", label,
+                [M.merge_path_splits(k, vs, run, ncmp).view(torch.uint32)],
+                [M.merge_path_splits_plain(k, vs, run, ncmp)
+                 .view(torch.uint32)])
+        compare("merge_pass_multi", label,
+                key_and_list(M.merge_pass_multi(k, vs, run, ncmp)),
+                key_and_list(M.merge_pass_multi_plain(k, vs, run, ncmp)))
+
+    fams = families(n2, 36)
+    extra = [iota, pay, random_keys_bounded(n2, 0, 5, 37, dev)] + [
+        random_keys(n2, 38 + i, dev) for i in range(4)]
+    for fam in ("all_equal", "distinct97", "uniform"):
+        for run in (1 << 15, 1000, 3):
+            m = (8 * 3 + 5) * run if run < 1 << 15 else 13 * run
+            for ns, ncmp in ((1, 1), (2, 1), (2, 2), (3, 1), (3, 2),
+                             (3, 3), (8, 1), (8, 2), (8, 3)):
+                merge_case(f"{fam} run={run} n={m} streams={ns} ncmp={ncmp}",
+                           [fams[fam][:m]] + [e[:m] for e in extra[:ns - 1]],
+                           run, ncmp)
+    padded = [t.view(torch.int32).clone()
+              for t in [random_keys(n2, 39, dev)] + extra[:2]]
+    for t in padded:
+        t[n2 - 300_000:] = -1
+    padded = [t.view(torch.uint32) for t in padded]
+    for ncmp in (1, 2, 3):
+        merge_case(f"0xFFFFFFFF-padded tail ncmp={ncmp}",
+                   padded[:max(2, ncmp)] + [pay], 1 << 15, ncmp)
+    del fams, extra, padded
+    print(f"phase 2: merge-path partition and merge bit exact on the edge "
+          f"cases (max_abs_err {max_err['merge_path_splits']}, "
+          f"{max_err['merge_pass_multi']})")
     # merge_pass_runs: every range of merge_runs_chunked (trimmed buffers
     # after the first range) against the plain version, and each merge
     # against a stable torch.sort: each family as S sorted runs with the
@@ -366,6 +428,14 @@ def main() -> int:
         compare("block_digit_histograms", f"{fam} digit_histogram r=8 g=2",
                 [H.digit_histogram(x, 8, 2)],
                 [H.block_digit_histograms_plain(x, 8, 2, n2)])
+    # r above the shared-memory counters: the device-memory kernel
+    for fam, x in families(n2, 40).items():
+        for r, group, blk in ((13, 0, 1 << 13), (13, 1, 1 << 17),
+                              (16, 1, 1 << 17), (16, 0, n2)):
+            compare("block_digit_histograms",
+                    f"{fam} r={r} group={group} block={blk}",
+                    [H.block_digit_histograms(x, r, group, blk)],
+                    [H.block_digit_histograms_plain(x, r, group, blk)])
     # scans: full-range u32 (wraparound), ragged lengths, i32
     for n_s in (n2, 100_000, 131_072 + 640):
         for dt in (torch.uint32, torch.int32):
@@ -385,6 +455,46 @@ def main() -> int:
         compare("block_prefix_sums", f"block={blk}",
                 list(SC.block_prefix_sums(xs, blk)),
                 list(SC.block_prefix_sums_plain(xs, blk)))
+    # the single-pass scan at the tile's edges and past 2^27, of uniform
+    # and all-0xFFFFFFFF words (every add wraps); the large case 20 times,
+    # where a look-back race would show
+    tile_s, cta_s = SC._tile(), SC._lookback()[0]
+    for n_s in (0, 1, tile_s - 1, tile_s, tile_s + 1, cta_s - 1, cta_s,
+                cta_s + 1, (1 << 27) + 13):
+        for fill, xs in (("uniform", random_keys(n_s, 34, dev)),
+                         ("all 0xFFFFFFFF", torch.full(
+                             (n_s,), -1, dtype=torch.int32,
+                             device=dev).view(torch.uint32))):
+            want_s = SC.exclusive_scan_plain(xs)
+            for rep in range(20 if n_s > 1 << 27 and fill == "uniform"
+                             else 1):
+                compare("exclusive_scan", f"n={n_s} {fill} rep {rep}",
+                        [SC.exclusive_scan(xs)], [want_s])
+    del xs, want_s
+    # 8- and 16-bit integers, scanned as int32 and cast back (mod 2^k)
+    for dt in (torch.uint8, torch.int8, torch.uint16, torch.int16):
+        xs = random_keys(n2 + 777, 35, dev).view(torch.int32).to(dt)
+        for kname, fn, plain_fn in (
+                ("exclusive_scan", SC.exclusive_scan,
+                 SC.exclusive_scan_plain),
+                ("exclusive_scan_hierarchical",
+                 SC.exclusive_scan_hierarchical,
+                 SC.exclusive_scan_hierarchical_plain),
+                ("block_prefix_sums",
+                 lambda x: SC.block_prefix_sums(x[:n2], 512),
+                 lambda x: SC.block_prefix_sums_plain(x[:n2], 512))):
+            got, want_s = fn(xs), plain_fn(xs)
+            got = list(got) if isinstance(got, tuple) else [got]
+            want_s = list(want_s) if isinstance(want_s, tuple) else [want_s]
+            if any(g.dtype != dt for g in got):
+                raise AssertionError(f"{kname} {dt} returned "
+                                     f"{[g.dtype for g in got]}")
+            compare(kname, f"{dt} n={xs.shape[0]}",
+                    [g.to(torch.int32).view(torch.uint32) for g in got],
+                    [w.to(torch.int32).view(torch.uint32) for w in want_s])
+    del xs
+    print(f"phase 2: exclusive_scan at n = 0 .. 2^27+13 (20 runs at 2^27+13)"
+          f", all-0xFFFFFFFF words and 8/16-bit dtypes: bit exact")
     for shape, tile, dt in (((128, 256), 128, torch.int32),
                             ((16384, 256), 256, torch.uint32),
                             ((16384, 256), 256, torch.int32)):
@@ -481,6 +591,31 @@ def main() -> int:
                  lambda *a: SH.shuffle_elem_runs_plain(*a, max_len_bits=10),
                  (pay, src.int(), dst.int(), lens.int(), n2),
                  covered(dst, lens & ~2047, lens, n2))
+    # an x that is not 16-byte aligned (copied first), and 4-byte dtypes
+    # other than uint32 (moved as their bits; the output is uint32)
+    base = random_keys(n2 + 1, 42, dev)
+    nch = rows2 // 32
+    src = torch.arange(nch, dtype=torch.int32, device=dev) * 32
+    dst = src.flip(0)
+    mask = torch.ones(rows2, dtype=torch.bool, device=dev)
+    for label, xm in (("misaligned", base[1:].view(rows2, SH.LANES)),
+                      ("int32", base[:n2].view(torch.int32)
+                       .view(rows2, SH.LANES)),
+                      ("float32", base[:n2].view(torch.float32)
+                       .view(rows2, SH.LANES))):
+        got = shuffle_case("shuffle_row_runs", f"{label} x, runs of 32 rows",
+                           SH.shuffle_row_runs, SH.shuffle_row_runs_plain,
+                           (xm, src, dst, torch.full_like(src, 32), rows2),
+                           mask)
+        if got.dtype != torch.uint32:
+            raise AssertionError(f"shuffle_row_runs {label}: {got.dtype}")
+    lens = torch.randint(0, 3000, (n2 // 2100,), generator=sgen, device=dev)
+    src, dst = packed(lens, 7), permuted_starts(lens, 6)
+    shuffle_case("shuffle_elem_runs", "float32 x, unaligned runs",
+                 SH.shuffle_elem_runs, SH.shuffle_elem_runs_plain,
+                 (base[1:].view(torch.float32), src.int(), dst.int(),
+                  lens.int(), n2), covered(dst, 0, lens, n2))
+    del base, mask
     print(f"phase 2: run shuffles bit exact on the covered items "
           f"(max_abs_err {max_err['shuffle_row_runs']}, "
           f"{max_err['shuffle_elem_runs']})")
@@ -506,6 +641,18 @@ def main() -> int:
             compare("fill_forward_last", f"{fam} {mname}",
                     list(FF.fill_forward_last(m, x, pay)),
                     list(FF.fill_forward_last_plain(m, x, pay)))
+    # more than 8 streams: one count and scan, scatters in groups of 8
+    many = [iota, pay, vals] + [random_keys(n2, 41 + i, dev)
+                                for i in range(13)]
+    for mname in ("p=0.25", "p=0.01"):
+        for k in (9, 16):
+            cnt = int(masks[mname].sum())
+            compare("compact_stream_multi", f"{mname} streams={k}",
+                    [o[:cnt] for o in CP.compact_stream_multi(masks[mname],
+                                                              many[:k])],
+                    [o[:cnt] for o in CP.compact_stream_multi_plain(
+                        masks[mname], many[:k])])
+    del many
     ragged = n2 - 12345
     compare("fill_forward_last", f"n={ragged}",
             list(FF.fill_forward_last(masks["p=0.01"][:ragged],
@@ -820,24 +967,27 @@ def main() -> int:
     query_kernels = ("compact_stream_multi", "fill_forward_last",
                      "probe_table")
     shuffle_kernels = ("shuffle_row_runs", "shuffle_elem_runs")
+    # exclusive_scan_hierarchical runs on the bench runner's scan/hier
+    # only: exclusive_scan no longer hands it its tile totals
     sort_kernels = tuple(k for k in sort_launches
                          if k not in query_kernels + shuffle_kernels
-                         + ("merge_pass_runs",))
+                         + ("merge_pass_runs", "exclusive_scan_hierarchical"))
+    merge_kernels = ("sort_tiles_multi", "merge_path_splits",
+                     "merge_pass_multi")
     # each path, its counts, and the kernels it must have launched
     paths = {
         "sort": (sort_launches, sort_plain, sort_kernels),
         "chunked": (chunked_launches, chunked_plain,
-                    ("sort_tiles_multi", "merge_pass_multi",
-                     "merge_pass_runs")),
+                    merge_kernels + ("merge_pass_runs",)),
         "sort64 merge (ncmp=3)": (sort64_launches, sort64_plain,
-                                  ("sort_tiles_multi", "merge_pass_multi")),
+                                  merge_kernels),
         "query": (query_launches, query_plain, query_kernels),
         "window_rank": (window_launches, window_plain_calls,
-                        ("sort_tiles_multi", "merge_pass_multi",
-                         "fill_forward_last")),
+                        merge_kernels + ("fill_forward_last",)),
         "bench runner": (runner_launches, runner_plain,
                          ("shuffle_row_runs", "sort_tiles", "sort_tiles_kv",
-                          "merge_pass_multi", "block_digit_histograms",
+                          "merge_path_splits", "merge_pass_multi",
+                          "block_digit_histograms",
                           "exclusive_scan", "exclusive_scan_hierarchical")
                          + query_kernels),
     }
@@ -851,10 +1001,12 @@ def main() -> int:
                                  f"path: {idle}")
         if any(pc.values()):
             raise AssertionError(f"{pname}: plain versions ran")
-    # shuffle_elem_runs has no caller on any path, in either package
+    # each kernel's launches on its own path; shuffle_elem_runs has no
+    # caller on any path, in either package
     launches = {k: query_launches[k] if k in query_kernels
                 else chunked_launches[k] if k == "merge_pass_runs"
                 else runner_launches[k] if k in shuffle_kernels
+                + ("exclusive_scan_hierarchical",)
                 else sort_launches[k] for k in sort_launches}
     phase_done(4)
 
@@ -914,6 +1066,14 @@ def main() -> int:
     def flipped(x):
         return x.view(torch.int32) ^ -(1 << 31)
 
+    def as_u32(table):
+        return [table.view(torch.uint32)]
+
+    def splits_bytes(run):
+        """The partition's bound: its table written once (it reads only
+        the rows its searches probe, O(log) a boundary)."""
+        return 4 * M.KWAY * M.tile_plan(n, run)[1]
+
     tile = tile_rows * TS.LANES
     chains = [
         ("sort_tiles", "keys", TS.sort_tiles, TS.sort_tiles_plain,
@@ -945,6 +1105,10 @@ def main() -> int:
             elif len(streams) == 2:
                 library = (lambda w=order_key(streams).view(-1, group):
                            torch.sort(w, dim=1))
+            check_and_time(
+                "merge_path_splits", f"{what} run=2^{run.bit_length() - 1}",
+                M.merge_path_splits, M.merge_path_splits_plain,
+                (streams[0], streams[1:2], run), splits_bytes(run), as_u32)
             streams = check_and_time(
                 "merge_pass_multi",
                 f"{what} run=2^{run.bit_length() - 1}", M.merge_pass_multi,
@@ -961,6 +1125,12 @@ def main() -> int:
         (hi64, [lo64, iota], tile_rows), 2 * 4 * n * 3, key_and_list)
     run = 1 << 15
     while run < n:
+        check_and_time(
+            "merge_path_splits",
+            f"hi+lo+pos ncmp=3 run=2^{run.bit_length() - 1}",
+            lambda k, v, r: M.merge_path_splits(k, v, r, ncmp=3),
+            lambda k, v, r: M.merge_path_splits_plain(k, v, r, ncmp=3),
+            (streams[0], streams[1:3], run), splits_bytes(run), as_u32)
         streams = check_and_time(
             "merge_pass_multi",
             f"hi+lo+pos ncmp=3 run=2^{run.bit_length() - 1}",
@@ -971,13 +1141,6 @@ def main() -> int:
     del streams
     print(f"phase 5: every merge-path kernel bit exact against its plain "
           f"version along the main path at n=2^27 (max_abs_err {max_err})")
-
-    def tile_sums(x):
-        """The tile totals that exclusive_scan hands on to
-        exclusive_scan_hierarchical, computed plainly."""
-        v = u32_to_i64(x)
-        v = torch.nn.functional.pad(v, (0, -v.shape[0] % SC._tile()))
-        return i64_to_u32(v.view(-1, SC._tile()).sum(1) & 0xFFFFFFFF)
 
     # at the sizes the JAX bench suites and the reference use for them;
     # these calls fill the two scans' rows of the kernels line
@@ -1016,14 +1179,10 @@ def main() -> int:
         check_and_time(
             "block_prefix_sums", f"histogram rows r={r} (block 2^{r})",
             SC.block_scans, SC._block_scans_plain, (hist.view(-1), bins),
-            8 * nb * bins + 4 * nb, list, elems=nb * bins)
-        totals = tile_sums(digit_major)
-        check_and_time(
-            "exclusive_scan_hierarchical",
-            f"tile totals of the r={r} digit-major scan",
-            SC.exclusive_scan_hierarchical,
-            SC.exclusive_scan_hierarchical_plain, (totals,),
-            8 * totals.shape[0], one, elems=totals.shape[0])
+            8 * nb * bins + 4 * nb, list,
+            lambda h=hist: torch.cumsum(h.view(torch.int32), 1,
+                                        dtype=torch.int32),
+            elems=nb * bins)
         check_and_time(
             "transpose_tiled", f"histogram r={r} ({nb}, {bins})",
             TR.transpose_any, TR.transpose_plain, (hist,), 8 * nb * bins,
@@ -1076,7 +1235,9 @@ def main() -> int:
     check_and_time("compact_stream_multi", "filter_kv: 2 streams",
                    CP.compact_stream_multi, CP.compact_stream_multi_plain,
                    (sel, fstreams), npad + 2 * 8 * cnt, list,
-                   lambda: fstreams[0].view(torch.int32)[sel], npad, cnt)
+                   lambda: torch.stack([f.view(torch.int32)
+                                        for f in fstreams], 1)[sel],
+                   npad, cnt)
     small = HT.build_table(qdata["bkeys_s"], qdata["bvals_s"],
                            HT.plan_rows(Q.SMALL_BUILD))
     probes = qdata["pkeys_s"]
@@ -1101,7 +1262,9 @@ def main() -> int:
     check_and_time("compact_stream_multi", "hash_join vmem: 3 streams",
                    CP.compact_stream_multi, CP.compact_stream_multi_plain,
                    (jsel, jstreams), npad + 2 * 12 * jcnt, list,
-                   lambda: jstreams[0].view(torch.int32)[jsel], npad, jcnt)
+                   lambda: torch.stack([j.view(torch.int32)
+                                        for j in jstreams], 1)[jsel],
+                   npad, jcnt)
     del sel, fstreams, jsel, jstreams
     jkeys = torch.cat([qdata["bkeys"], qdata["pkeys"]])
     jperm = torch.sort(u32_to_i64(jkeys), stable=True).indices
@@ -1236,6 +1399,8 @@ def main() -> int:
                           "lsdradixsort_tpu/kernels/tile_sort.py:238"),
         "sort_tiles_multi": ("lsdradixsort_tpu_torch/csrc/tile_sort.cu",
                              "lsdradixsort_tpu/kernels/tile_sort.py:298"),
+        "merge_path_splits": ("lsdradixsort_tpu_torch/csrc/merge.cu",
+                              "lsdradixsort_tpu/kernels/merge.py:75"),
         "merge_pass_multi": ("lsdradixsort_tpu_torch/csrc/merge.cu",
                              "lsdradixsort_tpu/kernels/merge.py:626"),
         "merge_pass_runs": ("lsdradixsort_tpu_torch/csrc/merge.cu",

@@ -28,6 +28,7 @@ Layer map:
              bench/runner.py), the flagship benchmark (bench/flagship.py)
              and the query benchmark (bench/query.py)
 """
+from lsdradixsort_tpu_torch.core import datagen, digits, roofline, timing
 from lsdradixsort_tpu_torch.kernels.fill_forward import fill_forward_last
 from lsdradixsort_tpu_torch.kernels.histogram import (block_digit_histograms,
                                                       digit_histogram)
@@ -57,6 +58,8 @@ from lsdradixsort_tpu_torch.ops.sort import (argsort, merge_sort_keys,
 from lsdradixsort_tpu_torch.ops.topk import top_k, unique
 from lsdradixsort_tpu_torch.ops.window import window_rank
 
+__version__ = "0.2.0"   # the JAX package's version, which the port mirrors
+
 __all__ = [
     "sort", "sort_kv", "argsort", "sort_with_ranks",
     "sort64_with_ranks", "sort_lex", "sort_blocks_kv",
@@ -70,4 +73,5 @@ __all__ = [
     "filter_not_in_set", "group_by_sum", "group_by_aggregate",
     "filtered_group_by_sum", "hash_join", "hash_join_multi", "probe_lookup",
     "probe_lookup64", "hash_join64", "top_k", "unique", "window_rank",
+    "digits", "datagen", "timing", "roofline",
 ]

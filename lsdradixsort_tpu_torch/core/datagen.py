@@ -13,6 +13,9 @@ from __future__ import annotations
 import torch
 
 from lsdradixsort_tpu_torch.core.convert import i64_to_u32, iota_u32
+from lsdradixsort_tpu_torch.core.convert import to_numpy as _to_numpy
+
+_WORDS = (torch.uint32, torch.int32, torch.float32)   # convert.to_numpy's
 
 
 def _generator(seed: int, device) -> torch.Generator:
@@ -44,3 +47,24 @@ def random_keys_bounded(n: int, lo: int, hi: int, seed: int = 0,
     vals = torch.randint(lo, hi, (n,), dtype=torch.int64, device=device,
                          generator=_generator(seed, device))
     return i64_to_u32(vals)
+
+
+def skewed_keys(n: int, seed: int = 0, hot_fraction: float = 0.9,
+                hot_key: int = 0xDEADBEEF, device="cuda") -> torch.Tensor:
+    """Adversarially skewed u32 keys: each row is `hot_key` with
+    probability `hot_fraction`, else a uniform 32-bit key (the JAX
+    package's distribution and arguments, not its bits)."""
+    g = _generator(seed, device)
+    uniform = torch.randint(-(1 << 31), 1 << 31, (n,), dtype=torch.int32,
+                            device=device, generator=g)
+    is_hot = torch.rand(n, device=device, generator=g) < hot_fraction
+    hot = hot_key - (1 << 32) if hot_key >= 1 << 31 else hot_key  # i32 bits
+    return torch.where(is_hot, hot, uniform).view(torch.uint32)
+
+
+def to_numpy(*tensors):
+    """numpy copies of the tensors, in their own dtypes: one array for one
+    tensor, else a tuple."""
+    out = tuple(_to_numpy(t) if t.dtype in _WORDS
+                else t.detach().cpu().numpy() for t in tensors)
+    return out[0] if len(out) == 1 else out

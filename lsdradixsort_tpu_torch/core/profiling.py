@@ -24,11 +24,14 @@ import torch
 
 
 @contextlib.contextmanager
-def trace(log_dir: str):
+def trace(log_dir: str, create_perfetto_link: bool = False):
     """Trace the enclosed computation with torch.profiler (CPU activity,
     and CUDA when a card is present) and write a Chrome/TensorBoard trace
     into `log_dir` when the block ends (open it with
-    `tensorboard --logdir <log_dir>` or chrome://tracing)."""
+    `tensorboard --logdir <log_dir>`, chrome://tracing or ui.perfetto.dev).
+    `create_perfetto_link` is the JAX profiler's option to serve the trace
+    to the Perfetto UI: accepted for API parity and ignored, since the
+    written file opens there as it is."""
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
     activities = [ProfilerActivity.CPU]

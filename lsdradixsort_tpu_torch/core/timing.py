@@ -31,6 +31,7 @@ def card_label() -> str:
 @dataclass
 class Timing:
     seconds: float          # median per-call device time
+    iters: int              # timed runs the median is taken over
 
     @property
     def ms(self) -> float:
@@ -39,8 +40,11 @@ class Timing:
     def gelems_per_s(self, n: int) -> float:
         return n / self.seconds / 1e9
 
+    def gbytes_per_s(self, nbytes: int) -> float:
+        return nbytes / self.seconds / 1e9
 
-def time_fn(fn, *args, iters: int = 5, warmup: int = 1) -> Timing:
+
+def time_fn(fn, *args, iters: int = 10, warmup: int = 1) -> Timing:
     """Median device time of `fn(*args)` over `iters` runs after `warmup`
     runs, each run bracketed by its own CUDA event pair."""
     if not torch.cuda.is_available():
@@ -55,7 +59,7 @@ def time_fn(fn, *args, iters: int = 5, warmup: int = 1) -> Timing:
         end.record()
     torch.cuda.synchronize()
     ms = statistics.median(s.elapsed_time(e) for s, e in events)
-    return Timing(seconds=ms / 1e3)
+    return Timing(seconds=ms / 1e3, iters=iters)
 
 
 def time_host(fn, *args, iters: int = 3) -> Timing:
@@ -68,4 +72,4 @@ def time_host(fn, *args, iters: int = 3) -> Timing:
         t0 = time.perf_counter()
         fn(*args)
         best = min(best, time.perf_counter() - t0)
-    return Timing(seconds=best)
+    return Timing(seconds=best, iters=iters)

@@ -22,6 +22,13 @@
 // when B is large (the parts then add into the zeroed output with global
 // atomics). Every block is a multiple of 128 keys, so the warps of a CTA
 // are always whole, as __match_any_sync with a full mask needs.
+//
+// Above r = 12 a block's 2^r counters (16 KB at r = 12) no longer fit
+// beside enough CTAs in shared memory, so block_histograms_global keeps
+// them in the zeroed output instead and adds with global atomics, after
+// the same grouping of a warp's lanes by counter. The TPU kernel has no
+// limit on r; this path serves r = 13..31, where the counters (4 bytes x
+// 2^r a block) and not the keys set the bytes.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -76,18 +83,36 @@ block_histograms(const uint32_t* __restrict__ keys, uint32_t* __restrict__ out,
   }
 }
 
-}  // namespace
+// r > kMaxR: the counters are the output itself, zeroed first. n is a
+// multiple of 128 and the stride of kThreads, so a warp's lanes are all
+// in range or all out of it.
+__global__ void __launch_bounds__(kThreads)
+block_histograms_global(const uint32_t* __restrict__ keys,
+                        uint32_t* __restrict__ out, long long n,
+                        long long block_size, int r, int shift) {
+  const uint32_t mask = (1u << r) - 1u;
+  const int lane = threadIdx.x & 31;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const uint32_t d = shift < 32 ? (keys[i] >> shift) & mask : 0u;
+    const unsigned long long c =
+        (static_cast<unsigned long long>(i / block_size) << r) | d;
+    const unsigned peers = __match_any_sync(0xffffffffu, c);
+    if (lane == __ffs(peers) - 1) atomicAdd(&out[c], __popc(peers));
+  }
+}
 
-// The largest digit width r the kernel takes (its shared-memory counters).
-extern "C" int lsd_histogram_max_r() { return kMaxR; }
+}  // namespace
 
 // out (n / block_size, 2^r) u32 = per-block counts of digit `group` of the
 // n u32 keys. block_size must be a positive multiple of 128 that divides n;
-// 0 <= r <= lsd_histogram_max_r(). Returns a cudaError_t.
+// 0 <= r <= 31. Returns a cudaError_t.
 extern "C" int lsd_block_histograms(const void* keys, void* out, long long n,
                                     long long block_size, int r, int group,
                                     void* stream) {
-  if (r < 0 || r > kMaxR || group < 0 || block_size < 128 ||
+  if (r < 0 || r > 31 || group < 0 || block_size < 128 ||
       block_size % 128 != 0 || block_size > (1LL << 30) ||
       n % block_size != 0) {
     return cudaErrorInvalidValue;
@@ -95,8 +120,21 @@ extern "C" int lsd_block_histograms(const void* keys, void* out, long long n,
   if (n == 0) return cudaSuccess;
   const long long s = static_cast<long long>(r) * group;
   const int shift = s >= 32 ? 32 : static_cast<int>(s);
-  const int bins = 1 << r;
   const long long nblocks = n / block_size;
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (r > kMaxR) {
+    const cudaError_t err = cudaMemsetAsync(
+        out, 0, static_cast<size_t>(nblocks) * sizeof(uint32_t) << r, st);
+    if (err != cudaSuccess) return err;
+    const long long want = (n + kThreads - 1) / kThreads;
+    const unsigned grid =
+        static_cast<unsigned>(want < (1 << 16) ? want : (1 << 16));
+    block_histograms_global<<<grid, kThreads, 0, st>>>(
+        static_cast<const uint32_t*>(keys), static_cast<uint32_t*>(out), n,
+        block_size, r, shift);
+    return cudaGetLastError();
+  }
+  const int bins = 1 << r;
   const int bs = static_cast<int>(block_size);
   int parts = 1, span = bs, bpc = 1;
   if (bs > kCtaKeys) {
@@ -112,7 +150,6 @@ extern "C" int lsd_block_histograms(const void* keys, void* out, long long n,
   const long long grid =
       parts > 1 ? nblocks * parts : (nblocks + bpc - 1) / bpc;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const auto st = static_cast<cudaStream_t>(stream);
   if (parts > 1) {
     const cudaError_t err = cudaMemsetAsync(
         out, 0, static_cast<size_t>(nblocks) * bins * sizeof(uint32_t), st);

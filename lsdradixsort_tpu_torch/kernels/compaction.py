@@ -16,7 +16,9 @@ header gives the design and what bounds it) compaction is count, scan,
 scatter: each tile's selected rows are counted, the port's
 `exclusive_scan` (kernels/scan.py) turns the counts into tile offsets,
 and each tile scatters its selected rows to offset + rank in the tile.
-Order is preserved by construction.
+Order is preserved by construction. One scatter launch moves up to
+MAX_STREAMS streams; more streams share the one count and scan and are
+scattered in groups of MAX_STREAMS (`stream_groups`).
 
 `interpret` is the TPU's knob: accepted and ignored. On a CPU tensor the
 wrapper runs the plain PyTorch version (boolean indexing, tail zeroed),
@@ -58,6 +60,13 @@ def _check(mask: torch.Tensor, xs) -> None:
         raise ValueError(f"unsupported device {mask.device}")
 
 
+def stream_groups(k: int) -> list[range]:
+    """The streams each scatter launch moves: k streams in consecutive
+    groups of at most MAX_STREAMS."""
+    return [range(lo, min(lo + MAX_STREAMS, k))
+            for lo in range(0, k, MAX_STREAMS)]
+
+
 def selected(mask: torch.Tensor) -> torch.Tensor:
     """A 0/1 (or bool) mask of any integer dtype as a bool tensor."""
     if mask.dtype == torch.bool:
@@ -93,8 +102,6 @@ def compact_stream_multi(mask: torch.Tensor, xs,
     if mask.device.type == "cpu":
         return compact_stream_multi_plain(mask, xs)
     _check(mask, xs)
-    if len(xs) > MAX_STREAMS:
-        raise ValueError(f"at most {MAX_STREAMS} streams, got {len(xs)}")
     n = xs[0].shape[0]
     m = selected(mask).contiguous().view(torch.uint8)   # bool bytes, 0/1
     if m.data_ptr() % 16:                      # the count kernel's loads
@@ -116,9 +123,11 @@ def compact_stream_multi(mask: torch.Tensor, xs,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_void_p])
-        _build.check(fn(m.data_ptr(), offsets.data_ptr(),
-                        _build.pointers(xs), _build.pointers(outs), len(xs),
-                        n, stream), "lsd_compact_scatter")
+        for g in stream_groups(len(xs)):
+            _build.check(fn(m.data_ptr(), offsets.data_ptr(),
+                            _build.pointers(xs[g.start:g.stop]),
+                            _build.pointers(outs[g.start:g.stop]), len(g), n,
+                            stream), "lsd_compact_scatter")
     LAUNCHES["compact_stream_multi"] += 1
     return outs
 

@@ -12,11 +12,12 @@ The TPU kernel counts with byte- or nibble-packed one-hot counters
 same counts; the port checks `counter_bits` and otherwise ignores it. On a
 CUDA tensor `block_digit_histograms` launches ``csrc/histogram.cu``
 (shared-memory atomics, the reference's design; its header says what
-bounds it), for r up to `max_r()` (12), the counters a CTA keeps in
-shared memory; on a CPU tensor it runs the plain PyTorch version beside
-it (`torch.bincount` of block * 2^r + digit), which `chip_smoke.py` also
-runs on the card to check the kernel. `LAUNCHES` and `PLAIN_CALLS` count
-both.
+bounds it) for r up to 12, the counters a CTA keeps in shared memory, and
+its second kernel, with the counters in device memory and global
+atomics, for r = 13..31; on a CPU tensor it runs the plain PyTorch
+version beside it (`torch.bincount` of block * 2^r + digit), which
+`chip_smoke.py` also runs on the card to check the kernel. `LAUNCHES`
+and `PLAIN_CALLS` count both.
 """
 from __future__ import annotations
 
@@ -29,13 +30,14 @@ from lsdradixsort_tpu_torch.core.digits import get_digit
 from lsdradixsort_tpu_torch.kernels import _build
 
 LANES = 128
-MAX_R_CUDA = 12       # lsd_histogram_max_r() in csrc/histogram.cu
+MAX_R = 31           # 2^r counters a block; a 32-bit digit has no room
 
 LAUNCHES = {"block_digit_histograms": 0}
 PLAIN_CALLS = {"block_digit_histograms": 0}
 
 
-def _check(keys: torch.Tensor, block_size: int, counter_bits: int) -> None:
+def _check(keys: torch.Tensor, r: int, block_size: int,
+           counter_bits: int) -> None:
     n = keys.shape[0]
     if n % block_size or block_size % LANES:
         raise ValueError(
@@ -43,6 +45,8 @@ def _check(keys: torch.Tensor, block_size: int, counter_bits: int) -> None:
             f"block_size by {LANES}")
     if counter_bits not in (4, 8):
         raise ValueError(f"counter_bits must be 4 or 8, got {counter_bits}")
+    if not 0 <= r <= MAX_R:
+        raise ValueError(f"r={r} must be in [0, {MAX_R}]")
     if keys.dtype not in (torch.uint32, torch.int32) or keys.dim() != 1:
         raise ValueError(f"keys must be (n,) uint32, got {keys.dtype} "
                          f"{tuple(keys.shape)}")
@@ -51,10 +55,11 @@ def _check(keys: torch.Tensor, block_size: int, counter_bits: int) -> None:
 
 
 def block_digit_histograms_plain(keys: torch.Tensor, r: int, group: int,
-                                 block_size: int, counter_bits: int = 8
+                                 block_size: int, counter_bits: int = 8,
+                                 interpret: bool | None = None
                                  ) -> torch.Tensor:
     """Plain PyTorch version: one bincount of block id * 2^r + digit."""
-    _check(keys, block_size, counter_bits)
+    _check(keys, r, block_size, counter_bits)
     PLAIN_CALLS["block_digit_histograms"] += 1
     n = keys.shape[0]
     nb, bins = n // block_size, 1 << r
@@ -65,8 +70,8 @@ def block_digit_histograms_plain(keys: torch.Tensor, r: int, group: int,
 
 
 def block_digit_histograms(keys: torch.Tensor, r: int, group: int,
-                           block_size: int, counter_bits: int = 8
-                           ) -> torch.Tensor:
+                           block_size: int, counter_bits: int = 8,
+                           interpret: bool | None = None) -> torch.Tensor:
     """Per-block digit histograms: (n / block_size, 2^r) uint32.
 
     Requires n % block_size == 0 and block_size % 128 == 0 (the JAX
@@ -75,11 +80,7 @@ def block_digit_histograms(keys: torch.Tensor, r: int, group: int,
     if keys.device.type == "cpu":
         return block_digit_histograms_plain(keys, r, group, block_size,
                                             counter_bits)
-    _check(keys, block_size, counter_bits)
-    if not 0 <= r <= MAX_R_CUDA:
-        raise ValueError(
-            f"r={r}: the CUDA histogram keeps 2^r counters per block in "
-            f"shared memory and takes r <= {MAX_R_CUDA}")
+    _check(keys, r, block_size, counter_bits)
     keys = keys.contiguous()
     n = keys.shape[0]
     out = torch.empty((n // block_size, 1 << r), dtype=torch.uint32,
@@ -96,7 +97,8 @@ def block_digit_histograms(keys: torch.Tensor, r: int, group: int,
     return out
 
 
-def digit_histogram(keys: torch.Tensor, r: int, group: int) -> torch.Tensor:
+def digit_histogram(keys: torch.Tensor, r: int, group: int,
+                    interpret: bool | None = None) -> torch.Tensor:
     """Whole-array digit histogram: (2^r,) uint32, the sum of the block
     histograms."""
     h = block_digit_histograms(keys, r, group, _pick_block(keys.shape[0]))

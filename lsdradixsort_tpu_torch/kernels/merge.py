@@ -22,11 +22,17 @@ range's first rank and, per run, the union of the range's windows.
 
 The TPU kernels needed sample tables from an XLA prepass
 (`merge_pass_tables`), VMEM quarter buffers and DMA windows, and a skew
-fallback for tables that overflow the buffer. The Hopper kernels
-(``csrc/merge.cu``) compute each row's output position directly by
-binary search in the other runs, so they need no sample tables and have
-no capacity to overflow; the TPU knobs (buf_elems, blk for the DMA
-windows, ce, pipeline, interpret) are accepted and change nothing.
+fallback for tables that overflow the buffer. On the card
+(``csrc/merge.cu``, whose header gives the designs and what bounds
+them) `merge_pass_multi` is a merge-path merge partitioned by output:
+`merge_path_splits` finds, for every output tile of TILE rows of a
+group, the exact co-rank of its first row in each run (the rows of that
+run the merged order puts before it), and one CTA a tile merges its
+windows, which together hold exactly TILE rows, in shared memory.
+`merge_pass_runs` computes each row's output position by binary search
+in the other runs. Neither has a capacity to overflow; the TPU knobs
+(buf_elems, blk for the DMA windows, ce, pipeline, interpret) are
+accepted and change nothing.
 
 On a CUDA tensor each wrapper launches its kernel; on a CPU tensor it
 runs the plain PyTorch version (a stable sort), which `chip_smoke.py`
@@ -44,6 +50,7 @@ from lsdradixsort_tpu_torch.kernels import _build
 
 KWAY = 8              # fan-in per merge pass
 MAX_STREAMS = 8       # key + payloads the kernel moves in one pass
+TILE = 1 << 12        # output rows a merge CTA writes (kTile, csrc/merge.cu)
 LANES = 128           # the table counts rows in units of 128
 NCOLS = 24            # columns of a merge table (the JAX layout)
 # Defaults of the JAX merge engine's TPU tuning knobs (sample stride and
@@ -51,8 +58,9 @@ NCOLS = 24            # columns of a merge table (the JAX layout)
 DEF_BLK = 2048
 DEF_BUF = 1 << 20
 
-LAUNCHES = {"merge_pass_multi": 0, "merge_pass_runs": 0}
-PLAIN_CALLS = {"merge_pass_multi": 0, "merge_pass_runs": 0}
+_NAMES = ("merge_path_splits", "merge_pass_multi", "merge_pass_runs")
+LAUNCHES = dict.fromkeys(_NAMES, 0)
+PLAIN_CALLS = dict.fromkeys(_NAMES, 0)
 _SIGN32 = -(1 << 31)  # 0x80000000 as an int32 bit pattern
 
 
@@ -79,8 +87,87 @@ def _check(keys: torch.Tensor, vals, run_len: int, ncmp) -> int:
     return ncmp
 
 
+def tile_plan(n: int, run_len: int) -> tuple[int, int]:
+    """(tiles of the first group, tiles in all) of a merge pass's output:
+    each group of up to KWAY runs in tiles of TILE rows, the last short.
+    Tile t of the pass is tile t % tiles_per_group of group t //
+    tiles_per_group (the last group may hold fewer)."""
+    if n == 0:
+        return 1, 0
+    nruns = n // run_len
+    groups = -(-nruns // KWAY)
+    per_group = -(-min(nruns, KWAY) * run_len // TILE)
+    last = (nruns - (groups - 1) * KWAY) * run_len
+    return per_group, (groups - 1) * per_group + -(-last // TILE)
+
+
+def merge_path_splits_plain(keys, vals, run_len: int,
+                            ncmp: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the merge-path partition: the co-ranks of
+    every output tile's first row, read off a stable sort of each group
+    (the source run of each merged row, counted tile by tile)."""
+    vals = list(vals)
+    ncmp = _check(keys, vals, run_len, ncmp)
+    PLAIN_CALLS["merge_path_splits"] += 1
+    streams = [keys, *vals][:ncmp]
+    n = keys.shape[0]
+    group = KWAY * run_len
+    full = n - n % group
+    parts = []
+    for lo, hi in ((0, full), (full, n)):      # full groups, then the rest
+        if hi > lo:
+            width = min(group, hi - lo)
+            perm = row_order([s[lo:hi] for s in streams], width)
+            tiles = -(-width // TILE)
+            run = torch.nn.functional.pad(perm // run_len,
+                                          (0, tiles * TILE - width),
+                                          value=KWAY)
+            cell = (torch.arange(perm.shape[0] * tiles, device=keys.device)
+                    .view(-1, tiles, 1) * (KWAY + 1)
+                    + run.view(-1, tiles, TILE))
+            counts = torch.bincount(cell.view(-1),
+                                    minlength=cell.shape[0] * tiles
+                                    * (KWAY + 1)).view(-1, tiles, KWAY + 1)
+            counts = counts[..., :KWAY]
+            parts.append((counts.cumsum(1) - counts).view(-1, KWAY))
+    if not parts:
+        return torch.zeros((0, KWAY), dtype=torch.int32, device=keys.device)
+    return torch.cat(parts).to(torch.int32)
+
+
+def merge_path_splits(keys: torch.Tensor, vals, run_len: int,
+                      ncmp: int | None = None) -> torch.Tensor:
+    """The merge-path partition of one merge pass: a (tiles, KWAY) int32
+    table (`tile_plan`), row t the number of rows of each run of tile t's
+    group that the merged order (the compared words unsigned, then run,
+    then position) puts before the tile's first row; 0 for runs past the
+    group's last. Only the first ncmp streams are read."""
+    vals = list(vals)
+    if keys.device.type == "cpu":
+        return merge_path_splits_plain(keys, vals, run_len, ncmp)
+    ncmp = _check(keys, vals, run_len, ncmp)
+    n = keys.shape[0]
+    out = torch.empty((tile_plan(n, run_len)[1], KWAY), dtype=torch.int32,
+                      device=keys.device)
+    with torch.cuda.device(keys.device):
+        if _build.library().lsd_merge_tile() != TILE:
+            raise RuntimeError("csrc/merge.cu kTile differs from TILE")
+        fn = _build.function("lsd_merge_path_splits", [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        _build.check(fn(_build.pointers([keys, *vals][:ncmp]), n, run_len,
+                        ncmp, out.data_ptr(), ctypes.c_void_p(stream)),
+                     "lsd_merge_path_splits")
+    LAUNCHES["merge_path_splits"] += 1
+    return out
+
+
 def merge_pass_multi_plain(keys, vals, run_len: int,
-                           ncmp: int | None = None):
+                           ncmp: int | None = None, *,
+                           buf_elems: int | None = None, blk: int = DEF_BLK,
+                           interpret: bool | None = None, ce: str = "roll",
+                           pipeline: bool = True):
     """Plain PyTorch version: a stable sort of each group of KWAY runs by
     the compared streams."""
     vals = list(vals)
@@ -101,7 +188,9 @@ def merge_pass_multi_plain(keys, vals, run_len: int,
 
 
 def merge_pass_multi(keys: torch.Tensor, vals, run_len: int,
-                     ncmp: int | None = None):
+                     ncmp: int | None = None, *, buf_elems: int | None = None,
+                     blk: int = DEF_BLK, interpret: bool | None = None,
+                     ce: str = "roll", pipeline: bool = True):
     """One KWAY merge pass with any number of payload streams (up to 7).
 
     keys and vals: (n,) uint32, sorted in runs of run_len by the compared
@@ -113,27 +202,36 @@ def merge_pass_multi(keys: torch.Tensor, vals, run_len: int,
         return merge_pass_multi_plain(keys, vals, run_len, ncmp)
     ncmp = _check(keys, vals, run_len, ncmp)
     streams = [keys, *vals]
+    splits = merge_path_splits(keys, vals, run_len, ncmp)
     outs = [torch.empty_like(s) for s in streams]
     with torch.cuda.device(keys.device):
         fn = _build.function("lsd_merge_pass", [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p])
         stream = torch.cuda.current_stream(keys.device).cuda_stream
         _build.check(fn(_build.pointers(streams), _build.pointers(outs),
                         len(streams), keys.shape[0], run_len, ncmp,
-                        ctypes.c_void_p(stream)), "lsd_merge_pass")
+                        splits.data_ptr(), ctypes.c_void_p(stream)),
+                     "lsd_merge_pass")
     LAUNCHES["merge_pass_multi"] += 1
     return outs[0], outs[1:]
 
 
-def merge_pass_kv(keys: torch.Tensor, vals: torch.Tensor, run_len: int):
+def merge_pass_kv(keys: torch.Tensor, vals: torch.Tensor, run_len: int, *,
+                  buf_elems: int | None = None, blk: int = DEF_BLK,
+                  interpret: bool | None = None, ce: str = "roll",
+                  pipeline: bool = True):
     """One merge pass carrying one payload, which breaks ties: a stable key
     merge when vals are unique and follow run order (e.g. row ids)."""
     ok, (ov,) = merge_pass_multi(keys, [vals], run_len)
     return ok, ov
 
 
-def merge_pass(keys: torch.Tensor, run_len: int) -> torch.Tensor:
+def merge_pass(keys: torch.Tensor, run_len: int, *,
+               buf_elems: int | None = None, blk: int = DEF_BLK,
+               interpret: bool | None = None, ce: str = "roll",
+               pipeline: bool = True) -> torch.Tensor:
     """One keys-only merge pass: sorted runs of run_len -> KWAY*run_len."""
     out, _ = merge_pass_multi(keys, [], run_len)
     return out

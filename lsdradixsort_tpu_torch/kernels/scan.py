@@ -1,7 +1,7 @@
 """Exclusive prefix sums — the port of lsdradixsort_tpu/kernels/scan.py.
 
-  * `exclusive_scan`: exclusive prefix sum of a 1-D u32 or i32 tensor of
-    any length, mod 2^32, in the input's dtype.
+  * `exclusive_scan`: exclusive prefix sum of a 1-D integer tensor of any
+    length, mod 2^k for its k-bit dtype, in the input's dtype.
   * `exclusive_scan_hierarchical`: the same function, the reference's
     hierarchical way (GPUPrefixSum, LSDRadixSort.cu:265-302).
   * `block_prefix_sums`: the exclusive scan of each block of `block_size`
@@ -12,19 +12,25 @@ The TPU's exclusive_scan is one sweep that threads a carry through grid
 steps run in order; CUDA CTAs run in no order, so on the card
 (``csrc/scan.cu``, whose header gives the design and what bounds it):
 
-  * `exclusive_scan` is reduce-then-scan: the total of each 4096-word
-    tile, an exclusive scan of those totals (`exclusive_scan_hierarchical`
-    on the card), then each tile scanned again from its offset.
+  * `exclusive_scan` is one pass with decoupled look-back: each CTA scans
+    8192 words once and takes its offset from the status words of the
+    CTAs before it. One C call and one launch; the status words live in
+    scratch kept per stream, which every launch leaves zero.
   * `exclusive_scan_hierarchical` is scan-then-propagate: each tile
     scanned with its total written out, the totals scanned the same way
     (recursively), and the offsets added back.
   * `block_prefix_sums` is one launch of the tile scan, segmented by
     block; a block larger than a tile is looped over with a carry.
 
-`block_rows` is the TPU's tile knob: accepted and ignored. On a CPU tensor
-each wrapper runs its plain PyTorch version (an int64 `cumsum` masked to
-32 bits), which `chip_smoke.py` also runs on the card to check the
-kernels. `LAUNCHES` and `PLAIN_CALLS` count both.
+The kernels add u32 words; i32 is the same bits. An 8- or 16-bit integer
+tensor is scanned as int32 and cast back, as the JAX package's scans take
+any integer dtype: the sum mod 2^32, then mod 2^k, is the sum mod 2^k.
+64-bit tensors are refused (the JAX package has none without x64).
+
+`block_rows` and `interpret` are the TPU's knobs: accepted and ignored.
+On a CPU tensor each wrapper runs its plain PyTorch version (an int64
+`cumsum` masked to 32 bits), which `chip_smoke.py` also runs on the card
+to check the kernels. `LAUNCHES` and `PLAIN_CALLS` count both.
 """
 from __future__ import annotations
 
@@ -38,6 +44,8 @@ from lsdradixsort_tpu_torch.kernels import _build
 
 LANES = 128
 _MASK = 0xFFFFFFFF
+_WORDS = (torch.uint32, torch.int32)
+_NARROW = (torch.uint8, torch.int8, torch.uint16, torch.int16)
 _NAMES = ("exclusive_scan", "exclusive_scan_hierarchical",
           "block_prefix_sums")
 
@@ -46,9 +54,9 @@ PLAIN_CALLS = dict.fromkeys(_NAMES, 0)
 
 
 def _check(x: torch.Tensor) -> None:
-    if x.dtype not in (torch.uint32, torch.int32) or x.dim() != 1:
-        raise ValueError(f"scans take (n,) uint32 or int32, got {x.dtype} "
-                         f"{tuple(x.shape)}")
+    if x.dtype not in _WORDS + _NARROW or x.dim() != 1:
+        raise ValueError(f"scans take (n,) integers of 8, 16 or 32 bits, "
+                         f"got {x.dtype} {tuple(x.shape)}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
 
@@ -74,23 +82,32 @@ def _scan_plain(x: torch.Tensor, name: str) -> torch.Tensor:
     return _out(torch.cumsum(v, 0) - v, x)
 
 
-def exclusive_scan_plain(x: torch.Tensor, block_rows: int = 512
-                         ) -> torch.Tensor:
+def exclusive_scan_plain(x: torch.Tensor, block_rows: int = 512,
+                         interpret: bool | None = None) -> torch.Tensor:
+    if x.dtype in _NARROW:
+        return exclusive_scan_plain(x.to(torch.int32)).to(x.dtype)
     return _scan_plain(x, "exclusive_scan")
 
 
-def exclusive_scan_hierarchical_plain(x: torch.Tensor, block_rows: int = 512
+def exclusive_scan_hierarchical_plain(x: torch.Tensor, block_rows: int = 512,
+                                      interpret: bool | None = None
                                       ) -> torch.Tensor:
+    if x.dtype in _NARROW:
+        return exclusive_scan_hierarchical_plain(x.to(torch.int32)).to(x.dtype)
     return _scan_plain(x, "exclusive_scan_hierarchical")
 
 
 def _block_scans_plain(x: torch.Tensor, seg: int):
+    if x.dtype in _NARROW:
+        return tuple(t.to(x.dtype) for t in
+                     _block_scans_plain(x.to(torch.int32), seg))
     PLAIN_CALLS["block_prefix_sums"] += 1
     v = u32_to_i64(x).view(-1, seg)
     return _out(torch.cumsum(v, 1) - v, x).view(-1), _out(v.sum(1), x)
 
 
-def block_prefix_sums_plain(x: torch.Tensor, block_size: int):
+def block_prefix_sums_plain(x: torch.Tensor, block_size: int,
+                            interpret: bool | None = None):
     _check(x)
     _check_blocks(x, block_size)
     return _block_scans_plain(x, block_size)
@@ -106,6 +123,33 @@ def _tile() -> int:
     return fn()
 
 
+@functools.cache
+def _lookback():
+    """(words a CTA of the single-pass scan covers, its C entry)."""
+    lib = _build.library()
+    lib.lsd_scan_lookback_words.argtypes = []
+    lib.lsd_scan_lookback_words.restype = ctypes.c_int
+    return lib.lsd_scan_lookback_words(), _build.function(
+        "lsd_exclusive_scan", [ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_void_p, ctypes.c_longlong,
+                               ctypes.c_int, ctypes.c_void_p])
+
+
+# (device index, stream handle) -> the single-pass scan's int64 status
+# scratch: zeroed once, and left zero by every launch (its last CTA clears
+# it), so launches in one stream's order share it
+_STATUS: dict = {}
+
+
+def _status(dev: int, stream: int, words: int) -> torch.Tensor:
+    buf = _STATUS.get((dev, stream))
+    if buf is None or buf.shape[0] < words:
+        buf = torch.zeros(max(words, 1 << 10), dtype=torch.int64,
+                          device=torch.device("cuda", dev))
+        _STATUS[(dev, stream)] = buf
+    return buf
+
+
 def _stream(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
@@ -114,48 +158,41 @@ def _ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
-def _seg_scan(x, out, totals, offsets, seg: int) -> None:
-    fn = _build.function("lsd_seg_scan", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p])
-    _build.check(fn(_ptr(x), _ptr(out), _ptr(totals), _ptr(offsets),
-                    x.shape[0], seg, _stream(x)), "lsd_seg_scan")
-
-
-def exclusive_scan(x: torch.Tensor, block_rows: int = 512) -> torch.Tensor:
-    """Exclusive prefix sum of a 1-D uint32/int32 tensor (any length),
-    mod 2^32, in x's dtype. Replaces GPUPrefixSum + AddBlockSumsKernel
+def exclusive_scan(x: torch.Tensor, block_rows: int = 512,
+                   interpret: bool | None = None) -> torch.Tensor:
+    """Exclusive prefix sum of a 1-D integer tensor (any length), mod 2^k,
+    in x's dtype. Replaces GPUPrefixSum + AddBlockSumsKernel
     (cu:265-302); no divisibility constraint."""
     if x.device.type == "cpu":
         return exclusive_scan_plain(x)
     _check(x)
+    if x.dtype in _NARROW:
+        return exclusive_scan(x.to(torch.int32)).to(x.dtype)
     x = x.contiguous()
     n = x.shape[0]
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        tile = _tile()
-        offsets = None
-        if n > tile:
-            totals = torch.empty(-(-n // tile), dtype=x.dtype,
-                                 device=x.device)
-            fn = _build.function("lsd_tile_totals", [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_void_p])
-            _build.check(fn(_ptr(x), _ptr(totals), n, _stream(x)),
-                         "lsd_tile_totals")
-            offsets = exclusive_scan_hierarchical(totals)
-        _seg_scan(x, out, None, offsets, tile)
+    # the small scans are bound by host time: the raw stream handle, the
+    # device passed to the C entry, the status scratch kept per stream
+    words, fn = _lookback()
+    dev = x.device.index
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    status = _status(dev, stream, -(-n // words) + 2)
+    _build.check(fn(x.data_ptr(), out.data_ptr(), status.data_ptr(), n, dev,
+                    stream), "lsd_exclusive_scan")
     LAUNCHES["exclusive_scan"] += 1
     return out
 
 
-def exclusive_scan_hierarchical(x: torch.Tensor, block_rows: int = 512
+def exclusive_scan_hierarchical(x: torch.Tensor, block_rows: int = 512,
+                                interpret: bool | None = None
                                 ) -> torch.Tensor:
     """Exclusive prefix sum via the reference's hierarchical decomposition
     (GPUPrefixSum, cu:265-302): the same contract as `exclusive_scan`."""
     if x.device.type == "cpu":
         return exclusive_scan_hierarchical_plain(x)
     _check(x)
+    if x.dtype in _NARROW:
+        return exclusive_scan_hierarchical(x.to(torch.int32)).to(x.dtype)
     x = x.contiguous()
     n = x.shape[0]
     out = torch.empty_like(x)
@@ -185,16 +222,24 @@ def block_scans(x: torch.Tensor, seg: int):
         raise ValueError(f"n={x.shape[0]} must be divisible by seg={seg}")
     if x.device.type == "cpu":
         return _block_scans_plain(x, seg)
+    if x.dtype in _NARROW:
+        return tuple(t.to(x.dtype) for t in block_scans(x.to(torch.int32),
+                                                        seg))
     x = x.contiguous()
     out = torch.empty_like(x)
     totals = torch.empty(x.shape[0] // seg, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        _seg_scan(x, out, totals, None, seg)
+        fn = _build.function("lsd_seg_scan", [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p])
+        _build.check(fn(_ptr(x), _ptr(out), _ptr(totals), x.shape[0], seg,
+                        _stream(x)), "lsd_seg_scan")
     LAUNCHES["block_prefix_sums"] += 1
     return out, totals
 
 
-def block_prefix_sums(x: torch.Tensor, block_size: int):
+def block_prefix_sums(x: torch.Tensor, block_size: int,
+                      interpret: bool | None = None):
     """Independent exclusive scan of each block + per-block totals:
     (scans (n,), totals (n / block_size,)), in x's dtype. Requires
     n % block_size == 0 and block_size % 128 == 0."""

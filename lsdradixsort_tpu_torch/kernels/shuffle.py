@@ -22,7 +22,10 @@ Limits of the port (ROADMAP Queue C): destination runs must be disjoint
 (overlaps have no defined order) and should lie inside both buffers; no
 item before the start or past the end of x or the output is ever read or
 written (interpret mode clamps the slice start instead, and on a TPU such
-a run is undefined). x must be uint32. Any offset is taken: the TPU's
+a run is undefined). x may be of any 4-byte dtype: its bits move, and
+the output is uint32, as the JAX kernels' is. A row-shuffle x that is not
+16-byte aligned (a view at an odd offset) is copied first, since the
+kernel loads 16 bytes at a time. Any offset is taken: the TPU's
 1024-word alignment of element runs is not a limit on the card. The run
 tables are int32 or int64 tensors; `runs_per_step` must be a multiple of 8
 (the TPU's SMEM blocking, otherwise unused) and `interpret` is accepted
@@ -63,8 +66,8 @@ def _tables(x: torch.Tensor, runs_per_step: int, *tables):
     """The run tables as contiguous int32 tensors on x's device."""
     if runs_per_step % 8:
         raise ValueError("runs_per_step must be a multiple of 8")
-    if x.dtype != torch.uint32:
-        raise ValueError(f"the shuffles move torch.uint32, got {x.dtype}")
+    if x.element_size() != 4:
+        raise ValueError(f"the shuffles move 4-byte words, got {x.dtype}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
     out = [torch.as_tensor(t, device=x.device).to(torch.int32).contiguous()
@@ -149,9 +152,9 @@ def shuffle_row_runs(x: torch.Tensor, src_rows, dst_rows, run_rows,
                                       out_rows, runs_per_step, fixed_rows)
     src, dst, lens = _tables(x, runs_per_step, src_rows, dst_rows, run_rows)
     _check_rows(x)
-    x = x.contiguous()
-    if x.data_ptr() % 16:
-        raise ValueError("x must be 16-byte aligned")
+    x = x.contiguous().view(torch.uint32)
+    if x.data_ptr() % 16:                      # the kernel's 16-byte loads
+        x = x.clone()
     out = torch.empty((out_rows, LANES), dtype=torch.uint32, device=x.device)
     _launch("shuffle_row_runs", x,
             [x.data_ptr(), out.data_ptr(), src.data_ptr(), dst.data_ptr(),
@@ -171,7 +174,7 @@ def shuffle_elem_runs(x: torch.Tensor, src, dst, run_len, out_elems: int,
     src, dst, lens = _tables(x, runs_per_step, src, dst, run_len)
     if x.dim() != 1:
         raise ValueError(f"x must be 1-D, got {tuple(x.shape)}")
-    x = x.contiguous()
+    x = x.contiguous().view(torch.uint32)
     out = torch.empty(out_elems, dtype=torch.uint32, device=x.device)
     _launch("shuffle_elem_runs", x,
             [x.data_ptr(), out.data_ptr(), src.data_ptr(), dst.data_ptr(),

@@ -19,7 +19,8 @@ On a CUDA tensor each wrapper launches the hand-written kernel in
 the design copes); on a CPU tensor it runs the plain PyTorch version
 beside it, which `chip_smoke.py` also runs on the card to check the
 kernel. `LAUNCHES` counts kernel launches per wrapper and `PLAIN_CALLS`
-runs of the plain versions.
+runs of the plain versions. `interpret` and `ce` are the TPU's lowering
+knobs, in the JAX package's argument order: accepted and ignored.
 """
 from __future__ import annotations
 
@@ -71,13 +72,15 @@ def _sort_tiles_plain(words, riders, tile: int, flip1: bool = False):
     return [take_rows(s, perm) for s in (*words, *riders)]
 
 
-def sort_tiles_plain(keys, tile_rows: int = 128):
+def sort_tiles_plain(keys, tile_rows: int = 128,
+                     interpret: bool | None = None, ce: str = "roll"):
     _check_tiles(keys, (), tile_rows)
     PLAIN_CALLS["sort_tiles"] += 1
     return _sort_tiles_plain([keys], [], tile_rows * LANES)[0]
 
 
-def sort_tiles_kv_plain(keys, values, tile_rows: int = 128):
+def sort_tiles_kv_plain(keys, values, tile_rows: int = 128,
+                        interpret: bool | None = None, ce: str = "roll"):
     _check_tiles(keys, (values,), tile_rows)
     PLAIN_CALLS["sort_tiles_kv"] += 1
     return tuple(_sort_tiles_plain([keys, values], [], tile_rows * LANES,
@@ -85,6 +88,7 @@ def sort_tiles_kv_plain(keys, values, tile_rows: int = 128):
 
 
 def sort_tiles_multi_plain(keys, values, tile_rows: int = 128,
+                           interpret: bool | None = None, ce: str = "roll",
                            ncmp: int | None = None):
     values = list(values)
     _check_tiles(keys, values, tile_rows)
@@ -128,7 +132,9 @@ def _launch(words, riders, tile_log2: int, flip1: bool):
     return dst, out_r
 
 
-def sort_tiles(keys: torch.Tensor, tile_rows: int = 128) -> torch.Tensor:
+def sort_tiles(keys: torch.Tensor, tile_rows: int = 128,
+               interpret: bool | None = None,
+               ce: str = "roll") -> torch.Tensor:
     """Sort uint32 keys ascending within each tile (keys only)."""
     if keys.device.type == "cpu":
         return sort_tiles_plain(keys, tile_rows)
@@ -139,7 +145,8 @@ def sort_tiles(keys: torch.Tensor, tile_rows: int = 128) -> torch.Tensor:
 
 
 def sort_tiles_kv(keys: torch.Tensor, values: torch.Tensor,
-                  tile_rows: int = 128):
+                  tile_rows: int = 128, interpret: bool | None = None,
+                  ce: str = "roll"):
     """(key, value)-sort within each tile of `tile_rows * 128` rows; the
     value breaks ties as a signed int32 and moves with its key. Pass
     unique values (e.g. row ids < 2^31) for a stable key sort. Returns
@@ -153,6 +160,7 @@ def sort_tiles_kv(keys: torch.Tensor, values: torch.Tensor,
 
 
 def sort_tiles_multi(keys: torch.Tensor, values, tile_rows: int = 128,
+                     interpret: bool | None = None, ce: str = "roll",
                      ncmp: int | None = None):
     """Tile-local sort with any number of payload streams.
 
@@ -162,7 +170,7 @@ def sort_tiles_multi(keys: torch.Tensor, values, tile_rows: int = 128,
     (sorted_keys, [payloads...])."""
     values = list(values)
     if keys.device.type == "cpu":
-        return sort_tiles_multi_plain(keys, values, tile_rows, ncmp)
+        return sort_tiles_multi_plain(keys, values, tile_rows, ncmp=ncmp)
     tile_log2 = _check_tiles(keys, values, tile_rows)
     ncmp = _ncmp(values, ncmp)
     compared, riders = values[:ncmp - 1], values[ncmp - 1:]

@@ -63,9 +63,11 @@ def transpose_any(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def transpose_tiled(a: torch.Tensor, tile: int = 256) -> torch.Tensor:
+def transpose_tiled(a: torch.Tensor, tile: int = 256,
+                    interpret: bool | None = None) -> torch.Tensor:
     """Tiled transpose (TransposeSMEMKernel equivalent, cu:512-544).
-    Requires both dims divisible by `tile`."""
+    Requires both dims divisible by `tile`; `interpret` is the TPU's knob,
+    accepted and ignored."""
     rows, cols = a.shape
     if rows % tile or cols % tile:
         raise ValueError(f"dims {tuple(a.shape)} must be divisible by "

@@ -52,6 +52,7 @@ keeps the (x, ok) return of `merge_sort_keys`, with ok always True.
 from __future__ import annotations
 
 import torch
+import torch.utils._pytree as pytree
 
 from lsdradixsort_tpu_torch.core import keycodec
 from lsdradixsort_tpu_torch.core.convert import (gather, i64_to_u32,
@@ -184,8 +185,9 @@ def sort(keys: torch.Tensor, strategy: str = "merge", r: int = 8,
 def sort_kv(keys: torch.Tensor, values, strategy: str = "merge", r: int = 8,
             block_size: int = 1 << 13, tile_log2: int = 15,
             descending: bool = False):
-    """Stable key-value sort. keys: u32/i32/f32; values: one tensor or a
-    list/tuple of tensors of any dtype, returned in the same structure.
+    """Stable key-value sort. keys: u32/i32/f32; values: any pytree of
+    (n,) tensors of any dtype (one tensor, a list, a tuple, a dict, nested:
+    `torch.utils._pytree`), returned in the same structure.
 
     "merge" runs the framework engine: the row index is the compared
     tiebreak and every 32-bit payload rides as its uint32 bits (a view,
@@ -193,8 +195,7 @@ def sort_kv(keys: torch.Tensor, values, strategy: str = "merge", r: int = 8,
     torch.sort of the codes. "composed" (n % block_size == 0) moves each
     (n,) payload, of any dtype, by its bits at every radix pass."""
     code = keycodec.encode(keys, descending)
-    single = isinstance(values, torch.Tensor)
-    flat = [values] if single else list(values)
+    flat, spec = pytree.tree_flatten(values)
     if strategy == "merge" and any(v.element_size() != 4 for v in flat):
         strategy = "xla"
     if strategy == "merge":
@@ -213,8 +214,8 @@ def sort_kv(keys: torch.Tensor, values, strategy: str = "merge", r: int = 8,
     else:
         raise ValueError(
             f"unknown strategy {strategy!r}; pick from {_STRATEGIES}")
-    sv = back[0] if single else type(values)(back)
-    return keycodec.decode(sk, keys.dtype, descending), sv
+    return (keycodec.decode(sk, keys.dtype, descending),
+            pytree.tree_unflatten(back, spec))
 
 
 def sort_with_ranks(keys: torch.Tensor, descending: bool = False):

@@ -169,10 +169,11 @@ def test_invalid_inputs_and_counters():
         J.shuffle_elem_runs(jnp.zeros(64, jnp.uint32), jnp.asarray(t),
                             jnp.asarray(t), jnp.asarray(t), out_elems=64,
                             runs_per_step=4)
+    # any 4-byte dtype moves as its uint32 bits; other widths are refused
     with pytest.raises(ValueError):
-        S.shuffle_row_runs(x.view(torch.int32), t, t, t, 16)
+        S.shuffle_row_runs(x.view(torch.int16), t, t, t, 16)
     with pytest.raises(ValueError):
-        S.shuffle_elem_runs(x.view(-1).view(torch.float32), t, t, t, 64)
+        S.shuffle_elem_runs(torch.zeros(64, dtype=torch.int64), t, t, t, 64)
     with pytest.raises(ValueError):
         S.shuffle_row_runs(x.view(32, 64), t, t, t, 16)
     rows = dict(S.PLAIN_CALLS)
