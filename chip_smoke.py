@@ -32,7 +32,15 @@ Phases, in order; any failure exits non-zero and prints no result:
    2^13; exclusive_scan at n = 0, 1, a scan tile and a CTA's words, each
    - 1, + 0 and + 1, and 2^27 + 13 (20 times), of uniform and of
    all-0xFFFFFFFF words, and the scans of 8- and 16-bit dtypes; and
-   transpose_tiled at (128, 256) and (16384, 256). Then the run shuffles on the items their runs cover: fixed row runs of 8, 32,
+   transpose_tiled at (128, 256) and (16384, 256). Both kernels of the
+   composed pass's row scans and transposes: block_scans at segments of
+   1, 2, 3, 4, 16, 31, 32, 256, 257, 1024, 4096 and 8192 words, of one
+   segment, 3, 517 and a ragged number of CTA spans, u32 and i32, each
+   aligned and offset by one word, and the 8- and 16-bit dtypes;
+   transpose_any at 1, 2, 3, 4, 5, 16, 17, 31, 32 and 33 columns and 4,
+   36, 1003 and 16384 rows, u32 and i32, aligned and offset by one word;
+   both on the path's (16384, 2^r) histograms. Then the run shuffles on
+   the items their runs cover: fixed row runs of 8, 32,
    128 and 512 rows, reversed and permuted, a run count no multiple of
    runs_per_step, through the fixed path (run_rows overridden) and the
    variable path; variable runs of random lengths into permuted disjoint
@@ -89,7 +97,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    merge-path partition wherever a merge pass runs;
    exclusive_scan_hierarchical only in the runner, whose scan/hier suite
    is its one caller), and no plain version ran. shuffle_elem_runs has
-   no caller on any path, in either package: its launches are 0.
+   no caller on any path, in either package: its launches are 0. Then one
+   composed sort at each r = 1, 2, 4, 8 launches block_prefix_sums and
+   transpose_tiled 32 / r times each, with no plain call.
 5. Each kernel against its plain version at the main paths' shapes, bit
    for bit, then both timed (CUDA events, median of 5 after a warm-up),
    with one PyTorch call computing the same function beside them where
@@ -103,7 +113,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    2^27 keys at each r, and of 2^27 all-equal keys at r = 8 and 1;
    exclusive_scan of each r's digit-major histogram (beside
    torch.cumsum) and of 2^27 words; block_prefix_sums of each r's
-   histogram rows (beside torch.cumsum(dim=1));
+   histogram rows and transpose_tiled of each r's histogram, each timed
+   in turns with its library call (torch.cumsum(dim=1),
+   .t().contiguous()) and traced (bench/small_ops.py: event interval,
+   host issue time, device time; the r = 8 records give the two entries
+   of the kernels line `device_ms` and `library_device_ms`);
    exclusive_scan_hierarchical and block_prefix_sums at 2^27;
    transpose_tiled at (16384, 256) and (8192, 16384); the compaction of
    filter_kv (2 streams) and of the vmem hash_join (3 streams) at 10^8
@@ -157,6 +171,7 @@ def main() -> int:
     from lsdradixsort_tpu_torch.entry import entry
     from lsdradixsort_tpu_torch.bench import query as Q
     from lsdradixsort_tpu_torch.bench import runner as RN
+    from lsdradixsort_tpu_torch.bench import small_ops as SO
     from lsdradixsort_tpu_torch.kernels import _build
     from lsdradixsort_tpu_torch.kernels import compaction as CP
     from lsdradixsort_tpu_torch.kernels import fill_forward as FF
@@ -501,6 +516,63 @@ def main() -> int:
         a = random_keys(shape[0] * shape[1], 10, dev, dtype=dt).view(shape)
         compare("transpose_tiled", f"{shape} {dt}",
                 [TR.transpose_tiled(a, tile)], [TR.transpose_plain(a)])
+    # the composed pass's row scans and transposes, both kernels of each:
+    # block_scans in registers for power-of-two segments up to 256 words
+    # (a lane, lanes of a warp, a warp in 2 loads), the tile scan for the
+    # rest, for the n % 4 tail of 1- and 2-word segments and for an x that
+    # is not 16-byte aligned; one segment, a few and a ragged number of CTA
+    # spans of each; transpose_any in registers for up to 32 columns, rows
+    # a multiple of 4 and aligned pointers, the shared-memory tiles for the
+    # rest; then the path's (16384, 2^r) histograms
+    for seg in (1, 2, 3, 4, 16, 31, 32, 256, 257, 1024, 4096, 8192):
+        for nseg in (1, 3, 517, n2 // seg + 3):
+            ns = nseg * seg
+            for dt in (torch.uint32, torch.int32):
+                xs = random_keys(ns + 1, 41, dev, dtype=dt)
+                for label, x_ in (("aligned", xs[:ns]), ("offset 1", xs[1:])):
+                    got = SC.block_scans(x_, seg)
+                    if any(g.dtype != dt for g in got):
+                        raise AssertionError(f"block_scans {dt} returned "
+                                             f"{[g.dtype for g in got]}")
+                    compare("block_prefix_sums",
+                            f"block_scans seg={seg} n={ns} {dt} {label}",
+                            list(got), list(SC._block_scans_plain(x_, seg)))
+    for dt in (torch.uint8, torch.int8, torch.uint16, torch.int16):
+        for seg in (2, 16, 256, 8192):
+            xs = random_keys(2 * n2 + 1, 42, dev).view(torch.int32).to(dt)
+            for label, x_ in (("aligned", xs[:2 * n2]), ("offset 1", xs[1:])):
+                got = SC.block_scans(x_, seg)
+                if any(g.dtype != dt for g in got):
+                    raise AssertionError(f"block_scans {dt} returned "
+                                         f"{[g.dtype for g in got]}")
+                compare("block_prefix_sums",
+                        f"block_scans seg={seg} {dt} {label}",
+                        [g.to(torch.int32).view(torch.uint32) for g in got],
+                        [w.to(torch.int32).view(torch.uint32)
+                         for w in SC._block_scans_plain(x_, seg)])
+    for cols in (1, 2, 3, 4, 5, 16, 17, 31, 32, 33):
+        for nrows in (4, 36, 1003, 16384):
+            for dt in (torch.uint32, torch.int32):
+                a = random_keys(nrows * cols + 1, 43, dev, dtype=dt)
+                for label, a_ in (
+                        ("aligned", a[:nrows * cols].view(nrows, cols)),
+                        ("offset 1", a[1:].view(nrows, cols))):
+                    compare("transpose_tiled",
+                            f"transpose_any ({nrows}, {cols}) {dt} {label}",
+                            [TR.transpose_any(a_)], [TR.transpose_plain(a_)])
+    for r in (8, 4, 2, 1):
+        hist = random_keys_bounded(16384 << r, 0, 1 << 14, 44 + r,
+                                   dev).view(16384, 1 << r)
+        compare("block_prefix_sums", f"histogram rows r={r}",
+                list(SC.block_scans(hist.view(-1), 1 << r)),
+                list(SC._block_scans_plain(hist.view(-1), 1 << r)))
+        compare("transpose_tiled", f"histogram r={r}",
+                [TR.transpose_any(hist)], [TR.transpose_plain(hist)])
+    del xs, a, hist
+    print("phase 2: block_scans at seg 1-8192 (registers and tiles), n of "
+          "one segment to ragged CTA spans, aligned and offset by 1, "
+          "u32/i32/8/16-bit; transpose_any at cols 1-33, rows 4-16384, "
+          "aligned and offset by 1; the path's histograms: bit exact")
     # the run shuffles, on the items the runs cover (the rest is
     # unspecified): fixed row runs of 8-512 rows, reversed and permuted,
     # with a run count that is no multiple of runs_per_step (the fixed
@@ -1001,6 +1073,21 @@ def main() -> int:
                                  f"path: {idle}")
         if any(pc.values()):
             raise AssertionError(f"{pname}: plain versions ran")
+    # one composed sort at each r: the row scans and the transpose launch
+    # once a pass, 32 / r times a sort
+    for r in (1, 2, 4, 8):
+        reset_counts()
+        sort(keys, strategy="composed", r=r)
+        torch.cuda.synchronize()
+        lc, pc = read_counts()
+        print(f"phase 4: composed sort r={r}: kernel launches "
+              f"{ {k: v for k, v in lc.items() if v} }; plain calls "
+              f"{ {k: v for k, v in pc.items() if v} }")
+        wrong = {k: lc[k] for k in ("block_prefix_sums", "transpose_tiled")
+                 if lc[k] != 32 // r}
+        if wrong or any(pc.values()):
+            raise AssertionError(f"composed sort r={r}: launches {wrong}, "
+                                 f"not {32 // r} a kernel, or plain calls")
     # each kernel's launches on its own path; shuffle_elem_runs has no
     # caller on any path, in either package
     launches = {k: query_launches[k] if k in query_kernels
@@ -1142,24 +1229,11 @@ def main() -> int:
     print(f"phase 5: every merge-path kernel bit exact against its plain "
           f"version along the main path at n=2^27 (max_abs_err {max_err})")
 
-    # at the sizes the JAX bench suites and the reference use for them;
-    # these calls fill the two scans' rows of the kernels line
-    for kname, what, fn, plain_fn, args, nbytes, library in (
-            ("exclusive_scan_hierarchical", "2^27 words",
-             SC.exclusive_scan_hierarchical,
-             SC.exclusive_scan_hierarchical_plain, (keys,), 8 * n,
-             lambda: torch.cumsum(keys.view(torch.int32), 0,
-                                  dtype=torch.int32)),
-            ("block_prefix_sums", "2^27 words, block 2^13",
-             SC.block_prefix_sums, SC.block_prefix_sums_plain,
-             (keys, 1 << 13), 8 * n + 4 * (n >> 13),
-             lambda: torch.cumsum(keys.view(torch.int32).view(-1, 1 << 13),
-                                  1, dtype=torch.int32))):
-        check_and_time(kname, what, fn, plain_fn, args, nbytes,
-                       one if kname == "exclusive_scan_hierarchical"
-                       else list, library)
-
-    # the composed path's kernels at its shapes (2^27 keys, block 2^13)
+    # the composed path's kernels at its shapes (2^27 keys, block 2^13):
+    # the row scans and the transpose checked bit for bit and their plain
+    # versions timed, then each timed in turns with its library call and
+    # traced (bench/small_ops.py `record`); the r = 8 records fill the two
+    # rows of the kernels line, with the traced device times
     blk = 1 << 13
     nb = n // blk
     for r in (8, 4, 2, 1):
@@ -1176,17 +1250,48 @@ def main() -> int:
             lambda x=digit_major: torch.cumsum(x.view(torch.int32), 0,
                                                dtype=torch.int32),
             elems=nb * bins)
-        check_and_time(
-            "block_prefix_sums", f"histogram rows r={r} (block 2^{r})",
-            SC.block_scans, SC._block_scans_plain, (hist.view(-1), bins),
-            8 * nb * bins + 4 * nb, list,
-            lambda h=hist: torch.cumsum(h.view(torch.int32), 1,
-                                        dtype=torch.int32),
-            elems=nb * bins)
-        check_and_time(
-            "transpose_tiled", f"histogram r={r} ({nb}, {bins})",
-            TR.transpose_any, TR.transpose_plain, (hist,), 8 * nb * bins,
-            one, lambda h=hist: h.t().contiguous(), elems=nb * bins)
+        plain = {"block_prefix_sums": (
+            lambda h=hist, b=bins: SC._block_scans_plain(h.view(-1), b), list),
+            "transpose_tiled": (lambda h=hist: TR.transpose_plain(h), one)}
+        for kname, what, kernel, library, nbytes in SO.hist_cases(hist):
+            plain_fn, split = plain[kname]
+            compare(kname, f"{what} n={nb * bins}", split(kernel()),
+                    split(plain_fn()))
+            tp = time_fn(plain_fn)
+            rec = SO.record(kname, what, kernel, library, nbytes, ceiling,
+                            card)
+            print(f"kernel {kname} [{what}] n={nb * bins}: bit exact; cuda "
+                  f"{rec['ms']:.4f} ms (turns {rec['ms_turns']}; host "
+                  f"{rec['host_ms']:.4f}, device {rec['device_ms']:.4f}), "
+                  f"plain {tp.ms:.3f} ms, library {rec['library_ms']:.4f} ms "
+                  f"(turns {rec['library_ms_turns']}; host "
+                  f"{rec['library_host_ms']:.4f}, device "
+                  f"{rec['library_device_ms']:.4f}), bound "
+                  f"{rec['bound_ms']:.4f} ms ({nbytes} bytes; {card})")
+            timed.setdefault(kname, []).append((rec["ms"], tp.ms))
+            if r == 8:
+                rows[kname] = {
+                    "ms": rec["ms"], "plain_ms": tp.ms,
+                    "bound_ms": rec["bound_ms"], "bound_by": "bytes",
+                    "library_ms": rec["library_ms"],
+                    "device_ms": rec["device_ms"],
+                    "library_device_ms": rec["library_device_ms"],
+                    "shape": f"{what} n={nb * bins}"}
+    # at the sizes the JAX bench suites and the reference use for them
+    for kname, what, fn, plain_fn, args, nbytes, library in (
+            ("exclusive_scan_hierarchical", "2^27 words",
+             SC.exclusive_scan_hierarchical,
+             SC.exclusive_scan_hierarchical_plain, (keys,), 8 * n,
+             lambda: torch.cumsum(keys.view(torch.int32), 0,
+                                  dtype=torch.int32)),
+            ("block_prefix_sums", "2^27 words, block 2^13",
+             SC.block_prefix_sums, SC.block_prefix_sums_plain,
+             (keys, 1 << 13), 8 * n + 4 * (n >> 13),
+             lambda: torch.cumsum(keys.view(torch.int32).view(-1, 1 << 13),
+                                  1, dtype=torch.int32))):
+        check_and_time(kname, what, fn, plain_fn, args, nbytes,
+                       one if kname == "exclusive_scan_hierarchical"
+                       else list, library)
     # all-equal keys: every key of a block lands in one counter
     same = torch.full((n,), 0x5EEDBEEF, dtype=torch.int32,
                       device=dev).view(torch.uint32)

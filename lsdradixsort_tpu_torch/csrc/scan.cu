@@ -35,6 +35,18 @@
 //    each segment's total. Alone it is block_prefix_sums (the reference's
 //    BlockPrefixSumKernel with its carry-out of block totals,
 //    LSDRadixSort.cu:180-207).
+//  * seg_scan_regs: the segmented scan for short power-of-two segments
+//    (seg <= kRegMaxSeg), the composed sort's histogram rows of 2^r
+//    words. No shared memory and no barrier: a lane loads 4 consecutive
+//    words with one 16-byte load; a lane scans a segment of seg <= 4
+//    words alone, seg / 4 lanes scan one of up to 128 words with
+//    __shfl_up_sync of that width, and a warp scans one of 256 words in
+//    two 16-byte loads a lane, carrying the total from one to the next.
+//    The last lane of a segment writes its total; stores are 16 bytes.
+//    lsd_seg_scan takes it when x and out are 16-byte aligned and the
+//    segments tile n (seg <= 4: n's last n % 4 words go to seg_scan);
+//    otherwise, and for longer segments (the reference's 2^13 block),
+//    seg_scan.
 //  * add_offsets: out[p] += offsets[p / kTile] (AddBlockSumsKernel, cu:278).
 //
 // lsd_scan_propagate is the reference's GPUPrefixSum (cu:286-302) and the
@@ -46,7 +58,10 @@
 // time it is read or written); a word costs two adds. exclusive_scan at
 // small sizes (the composed sort's 32 Ki - 4 Mi word histograms) is bound
 // by launches and host calls: hence one launch from one C call, with no
-// memset and no allocation but the output.
+// memset and no allocation but the output. The histogram rows' scans
+// (64 Ki - 4 Mi words) likewise: one C call, one launch of
+// seg_scan_regs, whose one DRAM round trip a lane takes no barrier to
+// wait on.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -147,6 +162,98 @@ seg_scan(const uint32_t* x, uint32_t* out, uint32_t* totals, long long n,
     __syncthreads();
   }
   if (seg >= kTile && totals && threadIdx.x == 0) totals[blockIdx.x] = carry;
+}
+
+// Longest segment seg_scan_regs takes: a warp, 2 loads of 16 bytes a lane.
+constexpr int kRegMaxSeg = 256;
+constexpr int kRegThreads = 128;
+
+// Exclusive scan of each segment of seg words (a power of two <= 128 when
+// K == 1, 256 when K == 2) of the nvec 16-byte vectors of x, with
+// each segment's total in totals (when given). A warp covers 32 K
+// vectors: lane l holds vectors base + 32 k + l, k < K. nvec is a whole
+// number of segments, or of vectors when seg < 4. x may be out (a lane
+// writes only the vectors it has read).
+template <int K>
+__global__ void __launch_bounds__(kRegThreads)
+seg_scan_regs(const uint4* x, uint4* out, uint32_t* totals, long long nvec,
+              int seg) {
+  const int lane = threadIdx.x & 31;
+  const long long base =
+      (static_cast<long long>(blockIdx.x) * kRegThreads + threadIdx.x -
+       lane) * K;
+  uint4 v[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const long long p = base + 32 * k + lane;
+    v[k] = p < nvec ? x[p] : make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (seg < 4) {
+    // K == 1: each lane's 4 words hold 4 / seg whole segments
+    const long long p = base + lane;
+    if (p >= nvec) return;
+    const uint32_t w[4] = {v[0].x, v[0].y, v[0].z, v[0].w};
+    uint32_t e[4];
+    uint32_t run = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if ((i & (seg - 1)) == 0) run = 0;
+      e[i] = run;
+      run += w[i];
+      if (totals && (i & (seg - 1)) == seg - 1) totals[(4 * p + i) / seg] = run;
+    }
+    out[p] = make_uint4(e[0], e[1], e[2], e[3]);
+    return;
+  }
+  // seg / 4 lanes a segment (all 32 when K > 1)
+  const int width = K > 1 ? 32 : seg / 4;
+  uint32_t carry = 0;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const uint32_t s1 = v[k].x, s2 = s1 + v[k].y, s3 = s2 + v[k].z,
+                   sum = s3 + v[k].w;
+    uint32_t incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      if (o < width) {
+        const uint32_t y = __shfl_up_sync(0xffffffffu, incl, o, width);
+        if ((lane & (width - 1)) >= o) incl += y;
+      }
+    }
+    const uint32_t excl = carry + incl - sum;
+    const long long p = base + 32 * k + lane;
+    if (p < nvec) {
+      out[p] = make_uint4(excl, excl + s1, excl + s2, excl + s3);
+      if (K == 1 && totals && (lane & (width - 1)) == width - 1) {
+        totals[p / width] = incl;
+      }
+    }
+    if (K > 1) carry += __shfl_sync(0xffffffffu, incl, 31);
+  }
+  if (K > 1 && totals && lane == 31 && base < nvec) {
+    totals[base / (32 * K)] = carry;
+  }
+}
+
+template <int K>
+cudaError_t launch_seg_scan_regs(const uint32_t* x, uint32_t* out,
+                                 uint32_t* totals, long long nvec, int seg,
+                                 cudaStream_t st) {
+  const long long per_cta = static_cast<long long>(kRegThreads) * K;
+  const long long grid = (nvec + per_cta - 1) / per_cta;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  seg_scan_regs<K><<<static_cast<unsigned>(grid), kRegThreads, 0, st>>>(
+      reinterpret_cast<const uint4*>(x), reinterpret_cast<uint4*>(out),
+      totals, nvec, seg);
+  return cudaGetLastError();
+}
+
+// Makes `device` current; returns the device that was (to restore).
+cudaError_t enter_device(int device, int* prev) {
+  *prev = device;
+  cudaError_t err = cudaGetDevice(prev);
+  if (err == cudaSuccess && *prev != device) err = cudaSetDevice(device);
+  return err;
 }
 
 // Status words of scan_lookback: flag << 32 | value.
@@ -341,20 +448,52 @@ extern "C" int lsd_scan_tile() { return kTile; }
 extern "C" int lsd_scan_lookback_words() { return kLbTile; }
 
 // Exclusive scans of the segments of `seg` words of x into out, and their
-// totals (one per segment) when totals is not null. seg >= 1; x may equal
-// out. Returns a cudaError_t.
+// totals (one per segment) when totals is not null, on `device` (made
+// current for the launch) and `stream`. seg >= 1; x may equal out. Short
+// power-of-two segments of aligned words take seg_scan_regs, the rest
+// seg_scan. Returns a cudaError_t.
 extern "C" int lsd_seg_scan(const void* x, void* out, void* totals,
-                            long long n, long long seg, void* stream) {
+                            long long n, long long seg, int device,
+                            void* stream) {
   if (seg < 1 || n < 0) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  const long long span = seg >= kTile ? seg : kTile / seg * seg;
-  const long long grid = (n + span - 1) / span;
-  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  seg_scan<<<static_cast<unsigned>(grid), kThreads, 0,
-             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
-      static_cast<uint32_t*>(totals), n, seg, span);
-  return cudaGetLastError();
+  int prev;
+  cudaError_t err = enter_device(device, &prev);
+  if (err != cudaSuccess) return err;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* xs = static_cast<const uint32_t*>(x);
+  uint32_t* os = static_cast<uint32_t*>(out);
+  uint32_t* ts = static_cast<uint32_t*>(totals);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  // words seg_scan_regs covers: whole segments in whole 16-byte vectors
+  long long head = 0;
+  if (aligned && (seg & (seg - 1)) == 0 && seg <= kRegMaxSeg &&
+      (seg < 4 || n % seg == 0)) {
+    head = n & ~3LL;
+  }
+  if (head > 0) {
+    const int sg = static_cast<int>(seg);
+    const long long nvec = head / 4;
+    err = sg <= 128 ? launch_seg_scan_regs<1>(xs, os, ts, nvec, sg, st)
+                    : launch_seg_scan_regs<2>(xs, os, ts, nvec, sg, st);
+  }
+  if (err == cudaSuccess && head < n) {
+    // the rest: every segment, or the last n % 4 words of short ones
+    const long long rest = n - head;
+    const long long span = seg >= kTile ? seg : kTile / seg * seg;
+    const long long grid = (rest + span - 1) / span;
+    if (grid > 0x7fffffffLL) {
+      err = cudaErrorInvalidValue;
+    } else {
+      seg_scan<<<static_cast<unsigned>(grid), kThreads, 0, st>>>(
+          xs + head, os + head, ts ? ts + head / seg : nullptr, rest, seg,
+          span);
+      err = cudaGetLastError();
+    }
+  }
+  if (prev != device) cudaSetDevice(prev);
+  return err;
 }
 
 // Exclusive scan of the n words of x into out in one pass (scan_lookback),
@@ -367,9 +506,8 @@ extern "C" int lsd_exclusive_scan(const void* x, void* out, void* status,
                                   long long n, int device, void* stream) {
   if (n < 0 || tiles_of(n) > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  int prev = device;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  int prev;
+  cudaError_t err = enter_device(device, &prev);
   if (err != cudaSuccess) return err;
   const long long tiles = (n + kLbTile - 1) / kLbTile;
   scan_lookback<<<static_cast<unsigned>(tiles), kThreads, 0,

@@ -19,8 +19,10 @@ steps run in order; CUDA CTAs run in no order, so on the card
   * `exclusive_scan_hierarchical` is scan-then-propagate: each tile
     scanned with its total written out, the totals scanned the same way
     (recursively), and the offsets added back.
-  * `block_prefix_sums` is one launch of the tile scan, segmented by
-    block; a block larger than a tile is looped over with a carry.
+  * `block_prefix_sums` is one launch: short power-of-two blocks (the
+    composed sort's histogram rows) are scanned in registers, a lane or a
+    few lanes of a warp a block; other blocks by the tile scan, segmented
+    by block, a block larger than a tile looped over with a carry.
 
 The kernels add u32 words; i32 is the same bits. An 8- or 16-bit integer
 tensor is scanned as int32 and cast back, as the JAX package's scans take
@@ -53,11 +55,14 @@ LAUNCHES = dict.fromkeys(_NAMES, 0)
 PLAIN_CALLS = dict.fromkeys(_NAMES, 0)
 
 
+_DTYPES = frozenset(_WORDS + _NARROW)
+
+
 def _check(x: torch.Tensor) -> None:
-    if x.dtype not in _WORDS + _NARROW or x.dim() != 1:
+    if x.dtype not in _DTYPES or x.ndim != 1:
         raise ValueError(f"scans take (n,) integers of 8, 16 or 32 bits, "
                          f"got {x.dtype} {tuple(x.shape)}")
-    if x.device.type not in ("cpu", "cuda"):
+    if not x.is_cuda and x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
 
 
@@ -213,29 +218,40 @@ def exclusive_scan_hierarchical(x: torch.Tensor, block_rows: int = 512,
     return out
 
 
+@functools.cache
+def _seg_scan():
+    return _build.function("lsd_seg_scan", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+
+
 def block_scans(x: torch.Tensor, seg: int):
     """(exclusive scan of each segment of `seg` words, segment totals) for
     any seg >= 1 dividing n: the launch behind `block_prefix_sums`, which
     the composed sort also calls on its histogram rows (2^r words)."""
     _check(x)
-    if seg < 1 or x.shape[0] % seg:
-        raise ValueError(f"n={x.shape[0]} must be divisible by seg={seg}")
-    if x.device.type == "cpu":
+    n = x.shape[0]
+    if seg < 1 or n % seg:
+        raise ValueError(f"n={n} must be divisible by seg={seg}")
+    if not x.is_cuda:
         return _block_scans_plain(x, seg)
     if x.dtype in _NARROW:
         return tuple(t.to(x.dtype) for t in block_scans(x.to(torch.int32),
                                                         seg))
     x = x.contiguous()
-    out = torch.empty_like(x)
-    totals = torch.empty(x.shape[0] // seg, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        fn = _build.function("lsd_seg_scan", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p])
-        _build.check(fn(_ptr(x), _ptr(out), _ptr(totals), x.shape[0], seg,
-                        _stream(x)), "lsd_seg_scan")
+    # the histogram rows' scans are bound by host time: the C entry cached,
+    # the raw stream handle, the device passed to the C entry, one
+    # allocation (scans, then totals) split in two only once the kernel is
+    # launched (cheaper to issue than two allocations, or than two slices
+    # of one: bench/small_ops.py `host_parts`)
+    buf = x.new_empty(n + n // seg)
+    dev = x.get_device()
+    ptr = buf.data_ptr()
+    _build.check(_seg_scan()(x.data_ptr(), ptr, ptr + 4 * n, n, seg, dev,
+                             torch._C._cuda_getCurrentRawStream(dev)),
+                 "lsd_seg_scan")
     LAUNCHES["block_prefix_sums"] += 1
-    return out, totals
+    return buf.split_with_sizes([n, n // seg])
 
 
 def block_prefix_sums(x: torch.Tensor, block_size: int,

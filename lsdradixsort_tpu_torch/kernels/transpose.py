@@ -6,7 +6,8 @@
     512-544). 4-byte dtypes; (rows, cols) -> (cols, rows). `tile` is the
     TPU's block: only its divisibility check is kept, for API parity.
 
-On a CUDA tensor `transpose_tiled` launches ``csrc/transpose.cu`` (32 x 32
+On a CUDA tensor `transpose_tiled` launches ``csrc/transpose.cu`` (a
+thread a 4 x 4 block in registers for up to 32 columns, else 32 x 32
 shared-memory tiles; its header says what bounds it); on a CPU tensor it
 runs the plain version, which `chip_smoke.py` also runs on the card to
 check the kernel. `LAUNCHES` and `PLAIN_CALLS` count both.
@@ -14,6 +15,7 @@ check the kernel. `LAUNCHES` and `PLAIN_CALLS` count both.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -29,10 +31,10 @@ def transpose(a: torch.Tensor) -> torch.Tensor:
 
 
 def _check(a: torch.Tensor) -> None:
-    if a.dim() != 2 or a.element_size() != 4:
+    if a.ndim != 2 or a.element_size() != 4:
         raise ValueError(f"transpose_tiled takes a 2-D tensor of a 4-byte "
                          f"dtype, got {a.dtype} {tuple(a.shape)}")
-    if a.device.type not in ("cpu", "cuda"):
+    if not a.is_cuda and a.device.type != "cpu":
         raise ValueError(f"unsupported device {a.device}")
 
 
@@ -42,23 +44,29 @@ def transpose_plain(a: torch.Tensor) -> torch.Tensor:
     return a.t().contiguous()
 
 
+@functools.cache
+def _transpose():
+    return _build.function("lsd_transpose", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+
+
 def transpose_any(a: torch.Tensor) -> torch.Tensor:
     """(cols, rows) transpose of a 2-D 4-byte tensor of any shape: the
     launch behind `transpose_tiled`, which the composed sort also calls on
     its (blocks, 2^r) histogram."""
-    if a.device.type == "cpu":
+    if not a.is_cuda:
         return transpose_plain(a)
     _check(a)
     a = a.contiguous()
     rows, cols = a.shape
-    out = torch.empty((cols, rows), dtype=a.dtype, device=a.device)
-    with torch.cuda.device(a.device):
-        fn = _build.function("lsd_transpose", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_void_p])
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        _build.check(fn(a.data_ptr(), out.data_ptr(), rows, cols,
-                        ctypes.c_void_p(stream)), "lsd_transpose")
+    # the histogram's transpose is bound by host time: the C entry cached,
+    # the raw stream handle, the device passed to the C entry
+    out = a.new_empty((cols, rows))
+    dev = a.get_device()
+    _build.check(_transpose()(a.data_ptr(), out.data_ptr(), rows, cols, dev,
+                              torch._C._cuda_getCurrentRawStream(dev)),
+                 "lsd_transpose")
     LAUNCHES["transpose_tiled"] += 1
     return out
 

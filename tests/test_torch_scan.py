@@ -11,6 +11,7 @@ import torch
 from lsdradixsort_tpu.kernels import scan as J
 from lsdradixsort_tpu_torch.core.convert import from_numpy, to_numpy
 from lsdradixsort_tpu_torch.kernels import scan as T
+from lsdradixsort_tpu_torch.kernels import transpose as TR
 
 
 def _words(n, seed=54):
@@ -61,7 +62,7 @@ def test_block_prefix_sums_match_jax(block):
     np.testing.assert_array_equal(to_numpy(gt), np.asarray(wt))
 
 
-@pytest.mark.parametrize("seg", [1, 2, 16, 256, 384])
+@pytest.mark.parametrize("seg", [1, 2, 4, 8, 16, 256, 384, 4096, 8192])
 def test_block_scans_any_segment(seg):
     # the composed sort scans histogram rows of 2^r words (no 128 rule)
     a = _words(24 * seg, seed=58).view(np.int32)
@@ -73,6 +74,37 @@ def test_block_scans_any_segment(seg):
     np.testing.assert_array_equal(to_numpy(totals).view(np.uint32),
                                   (v.sum(axis=1) & 0xFFFFFFFF)
                                   .astype(np.uint32))
+
+
+@pytest.fixture(scope="module", params=[1, 2, 4, 8])
+def composed_step(request):
+    """The JAX composed pass's scans of one (64, 2^r) histogram
+    (lsdradixsort_tpu/ops/sort.py:523, :527): each block's counts of a
+    2^13-key block, and the two expressions, computed once a shape."""
+    r = request.param
+    bins = 1 << r
+    rng = np.random.default_rng(60 + r)
+    digits = rng.integers(0, bins, (64, 1 << 13))
+    hist = np.stack([np.bincount(d, minlength=bins) for d in digits]).astype(
+        np.uint32)
+    h = jnp.asarray(hist)
+    gscan = J.exclusive_scan(h.T.reshape(-1).astype(jnp.uint32))
+    lofs = jnp.cumsum(h, axis=1, dtype=jnp.uint32) - h
+    return hist, np.asarray(lofs), np.asarray(gscan)
+
+
+def test_composed_pass_scans_match_jax(composed_step):
+    # the port's pass (ops/sort.py `_pass_destinations`): block_scans of
+    # the histogram rows, the flat scan of the transposed histogram
+    hist, want_lofs, want_gscan = composed_step
+    bins = hist.shape[1]
+    h = from_numpy(hist)
+    lofs, totals = T.block_scans(h.view(-1), bins)
+    np.testing.assert_array_equal(to_numpy(lofs).reshape(hist.shape),
+                                  want_lofs)
+    np.testing.assert_array_equal(to_numpy(totals), hist.sum(axis=1))
+    gscan = T.exclusive_scan(TR.transpose_any(h).view(-1))
+    np.testing.assert_array_equal(to_numpy(gscan), want_gscan)
 
 
 def test_invalid_inputs_raise():
@@ -99,3 +131,17 @@ def test_counters_count_plain_calls_on_cpu():
     assert T.LAUNCHES == launches
     assert {k: T.PLAIN_CALLS[k] - plain[k] for k in plain} == dict.fromkeys(
         plain, 1)
+
+
+def test_cpu_calls_leave_the_c_entries_and_counters_alone():
+    # the cached C entries load the kernel library: a CPU tensor never
+    # reaches them, and each call counts one plain call, no launch
+    launches, plain = dict(T.LAUNCHES), dict(T.PLAIN_CALLS)
+    x = from_numpy(_words(16 * 64))
+    for seg in (2, 16, 256):
+        scans, totals = T.block_scans(x, seg)
+        assert scans.shape == (16 * 64,) and totals.shape == (16 * 64 // seg,)
+    assert T._seg_scan.cache_info().currsize == 0
+    assert T._lookback.cache_info().currsize == 0
+    assert T.LAUNCHES == launches
+    assert T.PLAIN_CALLS["block_prefix_sums"] == plain["block_prefix_sums"] + 3

@@ -32,6 +32,29 @@ def test_transposes_match_jax(dtype, shape, tile):
     np.testing.assert_array_equal(to_numpy(T.transpose(from_numpy(a))), want)
 
 
+@pytest.mark.parametrize("cols", [1, 2, 3, 4, 16, 17])
+@pytest.mark.parametrize("rows", [64, 37])
+def test_narrow_transposes_match_jax(rows, cols):
+    # the composed sort's (blocks, 2^r) histograms, and the narrow shapes
+    # around them
+    rng = np.random.default_rng(61)
+    a = rng.integers(0, 2**32, (rows, cols), dtype=np.uint64).astype(
+        np.uint32)
+    got = T.transpose_any(from_numpy(a))
+    assert got.shape == (cols, rows)
+    np.testing.assert_array_equal(to_numpy(got),
+                                  np.asarray(J.transpose(jnp.asarray(a))))
+
+
+def test_cpu_calls_leave_the_c_entry_and_counters_alone():
+    launches, plain = dict(T.LAUNCHES), dict(T.PLAIN_CALLS)
+    for shape in ((64, 2), (64, 16), (64, 256)):
+        T.transpose_any(torch.zeros(shape, dtype=torch.int32))
+    assert T._transpose.cache_info().currsize == 0
+    assert T.LAUNCHES == launches
+    assert T.PLAIN_CALLS["transpose_tiled"] == plain["transpose_tiled"] + 3
+
+
 def test_transpose_any_shape_and_invalid_inputs():
     # the composed sort transposes (blocks, 2^r) histograms of any shape
     a = torch.arange(6 * 2, dtype=torch.int32).view(6, 2)
