@@ -15,12 +15,17 @@ Phases, in order; any failure exits non-zero and prints no result:
    at the 2^15-row tile; merge passes with 1, 2 and 3 streams at run_len
    2^15 and 2^18, and a 4-run group, plus the signed-val tiebreak of
    sort_tiles_kv; the tile sort and merge passes at ncmp = 3 (hi, lo,
-   position), with and without a rider; merge_pass_runs on every range
-   of merge_runs_chunked (trimmed buffers) of each family cut into
-   S = 8, 4, 2 sorted runs at nranges = 1, 2, 4, of the skewed layout of
-   tests/test_bigsort.py:64-83 and of runs no longer than one chunk (the
-   JAX fallback's crash, ROADMAP Queue C 1), each merge also against a
-   stable torch.sort; digit histograms at (r, group) in (1,0), (2,5),
+   position), with and without a rider; merge_pass_runs and its range
+   partition (merge_runs_splits) on every range of merge_runs_chunked
+   (trimmed buffers) of each family cut into S = 8, 4, 2 sorted runs at
+   nranges = 1, 2, 4, of the skewed layout of tests/test_bigsort.py:64-83
+   and of runs no longer than one chunk (the JAX fallback's crash,
+   ROADMAP Queue C 1), each merge also against a stable torch.sort; then
+   on ranges seen through windows cut from their exact co-ranks
+   (kernels/merge.py `window_table`): all-equal, few-unique and uniform
+   keys, S = 2, 3, 8 runs of unequal lengths (one shorter than a tile),
+   1, 2, 3 and 8 streams at ncmp 1-3, ranges that start mid-window and
+   hold no whole number of tiles; digit histograms at (r, group) in (1,0), (2,5),
    (4,3), (8,0), (8,3) and blocks 128, 1024, 2^13, 2^17, and
    digit_histogram; the device-memory histogram at r = 13 and 16.
    The merge-path partition (merge_path_splits) and merge against their
@@ -31,7 +36,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    (wraparound) and of i32, block_prefix_sums at blocks 128, 512 and
    2^13; exclusive_scan at n = 0, 1, a scan tile and a CTA's words, each
    - 1, + 0 and + 1, and 2^27 + 13 (20 times), of uniform and of
-   all-0xFFFFFFFF words, and the scans of 8- and 16-bit dtypes; and
+   all-0xFFFFFFFF words; exclusive_scan_hierarchical at n = 1, 2, 3, 5, a
+   block and a round of its grid plan each - 1, + 0 and + 1, two rounds
+   and a ragged tail, and 2^27 + 13 (10 times), aligned and offset by one
+   word; the scans of 8- and 16-bit dtypes; and
    transpose_tiled at (128, 256) and (16384, 256). Both kernels of the
    composed pass's row scans and transposes: block_scans at segments of
    1, 2, 3, 4, 16, 31, 32, 256, 257, 1024, 4096 and 8192 words, of one
@@ -96,7 +104,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    sort, histogram, scan and query kernels during the bench runner; the
    merge-path partition wherever a merge pass runs;
    exclusive_scan_hierarchical only in the runner, whose scan/hier suite
-   is its one caller), and no plain version ran. shuffle_elem_runs has
+   is its one caller), and no plain version ran; merge_pass_runs
+   launched exactly once a range (2 a chunked sort), the hierarchical
+   scan exactly 7 times in the runner. shuffle_elem_runs has
    no caller on any path, in either package: its launches are 0. Then one
    composed sort at each r = 1, 2, 4, 8 launches block_prefix_sums and
    transpose_tiled 32 / r times each, with no plain call.
@@ -108,8 +118,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    the kernel's previous output, its partition (merge_path_splits) timed
    on its own beside it (the pass's time includes it), and the same at
    ncmp = 3 (hi, lo, position); merge_pass_runs on each range of the
-   2^30 chunked pass (2 streams, untrimmed runs), beside a stable
-   torch.sort of the 2^30 int64 (key, position) words; the histogram of
+   2^30 chunked pass (2 streams, untrimmed runs), its partition timed on
+   its own beside it, beside a stable torch.sort of the 2^30 int64 (key,
+   position) words; the histogram of
    2^27 keys at each r, and of 2^27 all-equal keys at r = 8 and 1;
    exclusive_scan of each r's digit-major histogram (beside
    torch.cumsum) and of 2^27 words; block_prefix_sums of each r's
@@ -118,7 +129,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    .t().contiguous()) and traced (bench/small_ops.py: event interval,
    host issue time, device time; the r = 8 records give the two entries
    of the kernels line `device_ms` and `library_device_ms`);
-   exclusive_scan_hierarchical and block_prefix_sums at 2^27;
+   exclusive_scan_hierarchical at 2^27 in turns with torch.cumsum (3
+   turns of 5 events) and traced, beside exclusive_scan in turns with the
+   same cumsum; block_prefix_sums at 2^27;
    transpose_tiled at (16384, 256) and (8192, 16384); the compaction of
    filter_kv (2 streams) and of the vmem hash_join (3 streams) at 10^8
    rows (beside torch.stack(streams, 1)[mask]), the fill-forward of
@@ -169,6 +182,7 @@ def main() -> int:
     from lsdradixsort_tpu_torch.core import timing
     from lsdradixsort_tpu_torch.core.timing import card_label
     from lsdradixsort_tpu_torch.entry import entry
+    from lsdradixsort_tpu_torch.bench import flagship as FL
     from lsdradixsort_tpu_torch.bench import query as Q
     from lsdradixsort_tpu_torch.bench import runner as RN
     from lsdradixsort_tpu_torch.bench import small_ops as SO
@@ -384,9 +398,17 @@ def main() -> int:
     runs_label = [""]
 
     def runs_checked(run_streams, tables, **kw):
+        label = f"{runs_label[0]} chunk0={kw['chunk0']}"
+        part = {k: kw[k] for k in ("chunk0", "nchunks", "chunk_elems", "blk")
+                if k in kw}
+        compare("merge_path_splits", f"range partition {label}",
+                [M.merge_runs_splits(run_streams, tables, **part)
+                 .view(torch.uint32)],
+                [M.merge_runs_splits_plain(run_streams, tables, **part)
+                 .view(torch.uint32)])
         got = real_runs(run_streams, tables, **kw)
-        compare("merge_pass_runs", f"{runs_label[0]} chunk0={kw['chunk0']}",
-                got, M.merge_pass_runs_plain(run_streams, tables, **kw))
+        compare("merge_pass_runs", label, got,
+                M.merge_pass_runs_plain(run_streams, tables, **kw))
         return got
 
     def chunked_case(label, x, S, nranges, chunk_log2, rider=None):
@@ -432,6 +454,62 @@ def main() -> int:
         del skew
     finally:
         M.merge_pass_runs = real_runs
+    # one range through windows made from its exact co-ranks: all-equal,
+    # few-unique and uniform compared words (ncmp 1-3) and 0-6 riders,
+    # S = 2, 3 and 8 runs of unequal lengths (as the trims leave them),
+    # ranges that start mid-window and hold no whole number of tiles,
+    # runs shorter than a tile; partition and merge against their plain
+    # versions
+    rgen = torch.Generator(device=dev).manual_seed(45)
+    for fam, hi_ in (("all_equal", 1), ("few", 3), ("uniform", 1 << 32)):
+        for S, ns, ncmp in ((2, 1, 1), (3, 3, 3), (8, 8, 2), (8, 3, 3),
+                            (3, 8, 1), (2, 2, 2)):
+            lens = [int(v) for v in torch.randint(
+                3000 if S == 8 else 200_000, 300_000, (S,), generator=rgen,
+                device=dev)]
+            if S == 8:
+                lens[3] = 1000            # a run shorter than a tile
+            streams = [[], [], []] + [[] for _ in range(ns - 3)]
+            for s_, ln in enumerate(lens):
+                cols = [random_keys_bounded(ln, 0, hi_, 46 + s_ * 9 + i, dev)
+                        if hi_ < 1 << 32 else random_keys(ln, 46 + s_ * 9 + i,
+                                                          dev)
+                        for i in range(max(ns, 3))]
+                perm = row_order(cols[:ncmp], ln)
+                for i in range(ns):
+                    streams[i].append(take_rows(cols[i], perm))
+            streams = streams[:ns]
+            total = sum(lens)
+            for lo_frac, count in ((0.0, total), (0.3, 3 * M.TILE + 1000),
+                                   (0.61, 40 * M.TILE + 17)):
+                lo_rank = int(lo_frac * total)
+                count = min(count, total - lo_rank)
+                kw = dict(chunk0=0, nchunks=1, chunk_elems=count,
+                          blk=M.DEF_BLK, ncmp=ncmp)
+                whole = M.window_table([0] * S, lens, lo_rank)
+                cr = M.merge_runs_splits_plain(streams, whole, **kw)
+                first = [max(int(c) - 300, 0) // M.LANES * M.LANES
+                         for c in cr[0, :S]]
+                end = [min(int(c) + 300, ln) for c, ln in zip(cr[-1, :S],
+                                                              lens)]
+                tab = M.window_table(first, end, lo_rank)
+                what = (f"windows {fam} S={S} streams={ns} ncmp={ncmp} "
+                        f"lo={lo_rank} count={count}")
+                compare("merge_path_splits", f"range partition {what}",
+                        [M.merge_runs_splits(streams, tab, **kw)
+                         .view(torch.uint32)],
+                        [M.merge_runs_splits_plain(streams, tab, **kw)
+                         .view(torch.uint32)])
+                compare("merge_pass_runs", what,
+                        M.merge_pass_runs(streams, tab, buf_elems=M.DEF_BUF,
+                                          **kw),
+                        M.merge_pass_runs_plain(streams, tab,
+                                                buf_elems=M.DEF_BUF, **kw))
+            del streams
+    print(f"phase 2: merge_pass_runs and its range partition bit exact on "
+          f"every range of merge_runs_chunked and on windowed ranges "
+          f"(max_abs_err {max_err['merge_pass_runs']}, "
+          f"{max_err['merge_path_splits']})")
     # digit histograms, each family at every (r, group) and block
     for fam, x in families(n2, 1).items():
         for r, group in ((1, 0), (2, 5), (4, 3), (8, 0), (8, 3)):
@@ -486,6 +564,31 @@ def main() -> int:
                 compare("exclusive_scan", f"n={n_s} {fill} rep {rep}",
                         [SC.exclusive_scan(xs)], [want_s])
     del xs, want_s
+    # the hierarchical scan at its grid plan's edges: one word, a block and
+    # a round of the full grid each side, 2 rounds and a ragged tail, and
+    # past 2^27; uniform and all-0xFFFFFFFF words, x aligned and offset by
+    # one word (4-byte copies); the large case 10 times, where a barrier
+    # race would show
+    hb, ctas = SC.HIER_BLOCK, SC.hierarchical_ctas(dev)
+    rnd = hb * ctas
+    for n_s in (1, 2, 3, 5, hb - 1, hb, hb + 1, rnd - 1, rnd, rnd + 1,
+                2 * rnd + 4 * 1001 + 3, (1 << 27) + 13):
+        for fill in ("uniform", "all 0xFFFFFFFF"):
+            xs = (random_keys(n_s + 1, 47, dev) if fill == "uniform" else
+                  torch.full((n_s + 1,), -1, dtype=torch.int32,
+                             device=dev).view(torch.uint32))
+            for label, x_ in (("aligned", xs[:n_s]), ("offset 1", xs[1:])):
+                want_s = SC.exclusive_scan_hierarchical_plain(x_)
+                reps = (10 if n_s > 1 << 27 and fill == "uniform"
+                        and label == "aligned" else 1)
+                for rep in range(reps):
+                    compare("exclusive_scan_hierarchical",
+                            f"n={n_s} {fill} {label} rep {rep}",
+                            [SC.exclusive_scan_hierarchical(x_)], [want_s])
+    del xs, x_, want_s
+    print(f"phase 2: exclusive_scan_hierarchical ({ctas} CTAs of {hb} words "
+          f"a round) at n = 1 .. 2^27+13 (10 runs at 2^27+13), aligned and "
+          f"offset by 1, all-0xFFFFFFFF words: bit exact")
     # 8- and 16-bit integers, scanned as int32 and cast back (mod 2^k)
     for dt in (torch.uint8, torch.int8, torch.uint16, torch.int16):
         xs = random_keys(n2 + 777, 35, dev).view(torch.int32).to(dt)
@@ -1073,6 +1176,20 @@ def main() -> int:
                                  f"path: {idle}")
         if any(pc.values()):
             raise AssertionError(f"{pname}: plain versions ran")
+    # exact counts: merge_pass_runs once a range, NRANGES a chunked sort
+    # (each chunked_record sorts twice: a warm-up and the measured run);
+    # the runner's scan/hier record calls the hierarchical scan 7 times (a
+    # warm-up, 5 timed, the verify)
+    exact = {"chunked": ("merge_pass_runs", chunked_launches,
+                         2 * 2 * FL.NRANGES),
+             "bench runner": ("exclusive_scan_hierarchical",
+                              runner_launches, 7)}
+    for pname, (k, lc, want_n) in exact.items():
+        print(f"phase 4: {pname} path: {k} launched {lc[k]} times "
+              f"(expected {want_n})")
+        if lc[k] != want_n:
+            raise AssertionError(f"{pname}: {k} launched {lc[k]} times, "
+                                 f"not {want_n}")
     # one composed sort at each r: the row scans and the transpose launch
     # once a pass, 32 / r times a sort
     for r in (1, 2, 4, 8):
@@ -1277,21 +1394,44 @@ def main() -> int:
                     "device_ms": rec["device_ms"],
                     "library_device_ms": rec["library_device_ms"],
                     "shape": f"{what} n={nb * bins}"}
-    # at the sizes the JAX bench suites and the reference use for them
-    for kname, what, fn, plain_fn, args, nbytes, library in (
-            ("exclusive_scan_hierarchical", "2^27 words",
-             SC.exclusive_scan_hierarchical,
-             SC.exclusive_scan_hierarchical_plain, (keys,), 8 * n,
-             lambda: torch.cumsum(keys.view(torch.int32), 0,
-                                  dtype=torch.int32)),
-            ("block_prefix_sums", "2^27 words, block 2^13",
-             SC.block_prefix_sums, SC.block_prefix_sums_plain,
-             (keys, 1 << 13), 8 * n + 4 * (n >> 13),
-             lambda: torch.cumsum(keys.view(torch.int32).view(-1, 1 << 13),
-                                  1, dtype=torch.int32))):
-        check_and_time(kname, what, fn, plain_fn, args, nbytes,
-                       one if kname == "exclusive_scan_hierarchical"
-                       else list, library)
+    # at the sizes the JAX bench suites and the reference use for them:
+    # the hierarchical scan of 2^27 words checked, its plain version
+    # timed, then timed in turns with torch.cumsum (3 turns of 5 events)
+    # and traced (bench/small_ops.py `record`), beside the look-back scan
+    # in turns with the same cumsum
+    kname = "exclusive_scan_hierarchical"
+    compare(kname, f"2^27 words n={n}", [SC.exclusive_scan_hierarchical(keys)],
+            [SC.exclusive_scan_hierarchical_plain(keys)])
+    tp = time_fn(SC.exclusive_scan_hierarchical_plain, keys)
+
+    def cumsum27():
+        return torch.cumsum(keys.view(torch.int32), 0, dtype=torch.int32)
+
+    rec = SO.record(kname, "2^27 words",
+                    lambda: SC.exclusive_scan_hierarchical(keys), cumsum27,
+                    8 * n, ceiling, card)
+    look = SO.in_turns(lambda: SC.exclusive_scan(keys), cumsum27)
+    print(f"kernel {kname} [2^27 words] n={n}: bit exact; cuda "
+          f"{rec['ms']:.4f} ms (turns {rec['ms_turns']}; device "
+          f"{rec['device_ms']:.4f}, {rec['kernels']:.0f} kernels a call), "
+          f"plain {tp.ms:.3f} ms, library {rec['library_ms']:.4f} ms (turns "
+          f"{rec['library_ms_turns']}; device {rec['library_device_ms']:.4f}"
+          f"), bound {rec['bound_ms']:.4f} ms ({8 * n} bytes; {card}); "
+          f"exclusive_scan in turns {look['kernel']}, cumsum "
+          f"{look['library']}")
+    timed.setdefault(kname, []).append((rec["ms"], tp.ms))
+    rows[kname] = {
+        "ms": rec["ms"], "plain_ms": tp.ms, "bound_ms": rec["bound_ms"],
+        "bound_by": "bytes", "library_ms": rec["library_ms"],
+        "device_ms": rec["device_ms"],
+        "library_device_ms": rec["library_device_ms"],
+        "shape": f"2^27 words n={n}"}
+    check_and_time("block_prefix_sums", "2^27 words, block 2^13",
+                   SC.block_prefix_sums, SC.block_prefix_sums_plain,
+                   (keys, 1 << 13), 8 * n + 4 * (n >> 13), list,
+                   lambda: torch.cumsum(keys.view(torch.int32)
+                                        .view(-1, 1 << 13), 1,
+                                        dtype=torch.int32))
     # all-equal keys: every key of a block lands in one counter
     same = torch.full((n,), 0x5EEDBEEF, dtype=torch.int32,
                       device=dev).view(torch.uint32)
@@ -1473,8 +1613,18 @@ def main() -> int:
     nch = n30 >> 19
     tab = M.merge_tables_exact_runs(runs[0], 1 << 19)[0].cpu()
     for ri in range(2):
-        kw = dict(chunk0=ri * nch // 2, nchunks=nch // 2,
-                  chunk_elems=1 << 19, buf_elems=M.DEF_BUF)
+        part = dict(chunk0=ri * nch // 2, nchunks=nch // 2,
+                    chunk_elems=1 << 19)
+        kw = dict(part, buf_elems=M.DEF_BUF)
+        # its partition alone (part of the range's time): the table
+        # written once is its bound
+        check_and_time(
+            "merge_path_splits", f"2^30 pass, range {ri} of 2, partition",
+            lambda rs, t, part=part: M.merge_runs_splits(rs, t, **part),
+            lambda rs, t, part=part: M.merge_runs_splits_plain(rs, t,
+                                                               **part),
+            (runs, tab), 4 * M.KWAY * (-(-(n30 // 2) // M.TILE) + 1), as_u32,
+            elems=n30 // 2)
         check_and_time(
             "merge_pass_runs", f"2^30 pass, range {ri} of 2, 2 streams",
             lambda rs, t, kw=kw: M.merge_pass_runs(rs, t, **kw),

@@ -47,12 +47,25 @@
 //    segments tile n (seg <= 4: n's last n % 4 words go to seg_scan);
 //    otherwise, and for longer segments (the reference's 2^13 block),
 //    seg_scan.
-//  * add_offsets: out[p] += offsets[p / kTile] (AddBlockSumsKernel, cu:278).
-//
-// lsd_scan_propagate is the reference's GPUPrefixSum (cu:286-302) and the
-// port of exclusive_scan_hierarchical: seg_scan with tile totals out, the
-// same scan of the totals (recursively, in place, in scratch the caller
-// gives), then add_offsets; it reads and writes the data twice.
+//  * scan_rounds, exclusive_scan_hierarchical: the reference's
+//    hierarchical decomposition (GPUPrefixSum, cu:286-302; the JAX
+//    _block_totals_kernel, a scan of the totals, _scan_fixup_kernel) --
+//    block totals, a scan of the totals, each block scanned plus its
+//    offset -- in one cooperative launch that keeps each block on chip
+//    between the first step and the last. A persistent grid (the CTAs
+//    the card holds at once, one an SM) walks the data in rounds; in
+//    each, a CTA takes its block of kHierBlock words (128 KB) from shared
+//    memory into registers, where its copy (cp.async) landed during the
+//    round before, starts the copy of its next block, scans this one,
+//    publishes its total and waits at a grid barrier (cooperative
+//    groups); then it sums the totals before it, adds the carry of the
+//    earlier rounds, and stores. Every round pays the barrier and the
+//    exchange of totals whatever its size, so the block is the largest
+//    that the registers hold without spills (16 vectors a thread; 18 or
+//    20 spill): 32 rounds at 2^27 words. No recursion, no second pass: one
+//    read and one write of the data, against GPUPrefixSum's two of each.
+//    It stays a scheme of its own beside exclusive_scan's look-back (the
+//    bench CLI's scan/carry and scan/hier records compare the two).
 //
 // What bounds them on the H100: device-memory bytes (4 bytes a word each
 // time it is read or written); a word costs two adds. exclusive_scan at
@@ -62,6 +75,7 @@
 // (64 Ki - 4 Mi words) likewise: one C call, one launch of
 // seg_scan_regs, whose one DRAM round trip a lane takes no barrier to
 // wait on.
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -414,28 +428,229 @@ scan_lookback(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-add_offsets(uint32_t* out, const uint32_t* __restrict__ offsets, long long n) {
-  const long long c0 = static_cast<long long>(blockIdx.x) * kTile;
-  const int len = static_cast<int>(min(static_cast<long long>(kTile), n - c0));
-  const uint32_t add = offsets[blockIdx.x];
-  for (int i = threadIdx.x; i < len; i += kThreads) out[c0 + i] += add;
+// --- exclusive_scan_hierarchical: one cooperative launch ------------------
+
+// A CTA of scan_rounds: kHierThreads threads, each holding kHierChunks
+// 16-byte vectors of a round's block in registers; vector c * kHierThreads
+// + t of the block is thread t's c-th, so a warp's loads and stores are
+// coalesced and its shared-memory reads hit 32 banks apart. A thread
+// copies into and reads out of its own slots of the one shared-memory
+// buffer only, so the next round's copy can land there as soon as the
+// thread has read this round's.
+constexpr int kHierThreads = 512;
+constexpr int kHierWarps = kHierThreads / 32;
+constexpr int kHierChunks = 16;
+constexpr int kHierBatch = 8;  // chunks warp-scanned together
+constexpr int kHierBlock = kHierChunks * kHierThreads * 4;  // words a round
+constexpr size_t kHierSmem = kHierBlock * sizeof(uint32_t);  // 128 KB
+static_assert(kHierChunks % kHierBatch == 0, "whole batches");
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src)
+               : "memory");
 }
 
-long long tiles_of(long long n) { return (n + kTile - 1) / kTile; }
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src)
+               : "memory");
+}
 
-cudaError_t scan_propagate(const uint32_t* x, uint32_t* out,
-                           uint32_t* scratch, long long n, cudaStream_t st) {
-  const long long tiles = tiles_of(n);
-  seg_scan<<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
-      x, out, tiles > 1 ? scratch : nullptr, n, kTile, kTile);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || tiles == 1) return err;
-  err = scan_propagate(scratch, scratch, scratch + tiles, tiles, st);
-  if (err != cudaSuccess) return err;
-  add_offsets<<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(out, scratch,
-                                                                   n);
-  return cudaGetLastError();
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// Start this thread's copies of the block at word `base` of x into its
+// slots of buf: 16 bytes a vector where x is aligned and the vector lies
+// wholly before n, else word by word; words at or past n are not copied
+// (scan_rounds masks them).
+__device__ __forceinline__ void hier_load(const uint32_t* __restrict__ x,
+                                          long long n, long long base,
+                                          bool aligned, uint4* buf) {
+#pragma unroll
+  for (int c = 0; c < kHierChunks; ++c) {
+    const int v = c * kHierThreads + threadIdx.x;
+    const long long w0 = base + 4LL * v;
+    if (aligned && w0 + 4 <= n) {
+      cp_async16(buf + v, x + w0);
+    } else {
+      for (int i = 0; i < 4; ++i) {
+        if (w0 + i < n) cp_async4(reinterpret_cast<uint32_t*>(buf + v) + i,
+                                  x + w0 + i);
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+// Exclusive scan of x into out, the reference's hierarchical way in one
+// launch: a persistent grid of G CTAs (all resident: a cooperative launch)
+// walks the data in `rounds` rounds of G blocks of kHierBlock words. In
+// round k, CTA b takes block k * G + b into registers (its copy into
+// shared memory started during round k - 1), starts the copy of its next
+// block, scans this one, publishes its total, and waits at the grid
+// barrier; then it sums the totals of the CTAs before it in the round,
+// adds that and the carry of the earlier rounds (the same in every CTA),
+// and stores its block. Each word is read and written once. totals: 2 * G
+// words of scratch (one set a round parity: a round's totals are read
+// before the next barrier, and the next round of the same parity writes
+// them only after it).
+__global__ void __launch_bounds__(kHierThreads, 1)
+scan_rounds(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+            uint32_t* totals, long long n, long long rounds) {
+  extern __shared__ uint4 hbuf[];
+  __shared__ uint32_t wsum[kHierChunks][kHierWarps];
+  __shared__ uint32_t ctot[kHierChunks];
+  __shared__ uint32_t red[kHierWarps][2];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const long long G = gridDim.x, b = blockIdx.x;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(x) |
+                         reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  uint32_t carry = 0;
+  hier_load(x, n, b * kHierBlock, aligned, hbuf);
+  for (long long k = 0; k < rounds; ++k) {
+    const long long base = (k * G + b) * kHierBlock;
+    cp_async_wait_all();  // this thread's slots: no barrier needed
+    // each vector as its inclusive prefix (a, a + b, a + b + c, sum);
+    // words at or past n read as 0
+    uint4 v[kHierChunks];
+#pragma unroll
+    for (int c = 0; c < kHierChunks; ++c) {
+      uint4 q = hbuf[c * kHierThreads + t];
+      const long long w0 = base + 4LL * (c * kHierThreads + t);
+      if (w0 + 4 > n) {
+        if (w0 >= n) q.x = 0;
+        if (w0 + 1 >= n) q.y = 0;
+        if (w0 + 2 >= n) q.z = 0;
+        q.w = 0;
+      }
+      q.y += q.x;
+      q.z += q.y;
+      q.w += q.z;
+      v[c] = q;
+    }
+    // the next block: its copy runs across this round's barrier (the
+    // prefixes above have read this thread's slots)
+    if (k + 1 < rounds) {
+      hier_load(x, n, base + G * kHierBlock, aligned, hbuf);
+    }
+    // warp scans of each chunk, a batch at a time; each vector becomes
+    // its exclusive prefix within the warp; lane 31 keeps the warp's sum
+#pragma unroll
+    for (int c0 = 0; c0 < kHierChunks; c0 += kHierBatch) {
+      uint32_t incl[kHierBatch];
+#pragma unroll
+      for (int i = 0; i < kHierBatch; ++i) incl[i] = v[c0 + i].w;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+        for (int i = 0; i < kHierBatch; ++i) {
+          const uint32_t y = __shfl_up_sync(0xffffffffu, incl[i], o);
+          if (lane >= o) incl[i] += y;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kHierBatch; ++i) {
+        uint4& q = v[c0 + i];
+        const uint32_t e = incl[i] - q.w;
+        q = make_uint4(e, e + q.x, e + q.y, e + q.z);
+        if (lane == 31) wsum[c0 + i][w] = incl[i];
+      }
+    }
+    __syncthreads();
+    // each chunk's warp sums scanned by one warp
+    for (int c = w; c < kHierChunks; c += kHierWarps) {
+      const uint32_t s = lane < kHierWarps ? wsum[c][lane] : 0u;
+      uint32_t si = s;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const uint32_t y = __shfl_up_sync(0xffffffffu, si, o);
+        if (lane >= o) si += y;
+      }
+      if (lane < kHierWarps) wsum[c][lane] = si - s;
+      if (lane == kHierWarps - 1) ctot[c] = si;
+    }
+    __syncthreads();
+    uint32_t total = 0;
+#pragma unroll
+    for (int c = 0; c < kHierChunks; ++c) {
+      const uint32_t add = total + wsum[c][w];
+      v[c] = make_uint4(v[c].x + add, v[c].y + add, v[c].z + add,
+                        v[c].w + add);
+      total += ctot[c];
+    }
+    uint32_t* round_totals = totals + (k & 1) * G;
+    if (t == 0) round_totals[b] = total;
+    grid.sync();
+    // the CTAs before this one in the round, and the round's total
+    uint32_t before = 0, all = 0;
+    if (t < G) {
+      all = __ldcg(round_totals + t);
+      before = t < b ? all : 0u;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      before += __shfl_xor_sync(0xffffffffu, before, o);
+      all += __shfl_xor_sync(0xffffffffu, all, o);
+    }
+    if (lane == 0) {
+      red[w][0] = before;
+      red[w][1] = all;
+    }
+    __syncthreads();
+    uint32_t add = carry, round_total = 0;
+#pragma unroll
+    for (int i = 0; i < kHierWarps; ++i) {
+      add += red[i][0];
+      round_total += red[i][1];
+    }
+    carry += round_total;
+#pragma unroll
+    for (int c = 0; c < kHierChunks; ++c) {
+      const int vi = c * kHierThreads + t;
+      const long long w0 = base + 4LL * vi;
+      const uint4 o = make_uint4(v[c].x + add, v[c].y + add, v[c].z + add,
+                                 v[c].w + add);
+      if (aligned && w0 + 4 <= n) {
+        reinterpret_cast<uint4*>(out + base)[vi] = o;
+      } else {
+        const uint32_t ow[4] = {o.x, o.y, o.z, o.w};
+        for (int i = 0; i < 4; ++i) {
+          if (w0 + i < n) out[w0 + i] = ow[i];
+        }
+      }
+    }
+  }
+}
+
+// CTAs of scan_rounds resident on `device` at once (the cooperative
+// grid's ceiling), or 0 on an error; cached per device.
+int hier_ctas(int device) {
+  static int cache[64] = {};
+  if (device < 0 || device >= 64) return 0;
+  if (cache[device] > 0) return cache[device];
+  int sms = 0, per_sm = 0, coop = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess ||
+      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device) !=
+          cudaSuccess ||
+      !coop ||
+      cudaFuncSetAttribute(scan_rounds,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(kHierSmem)) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, scan_rounds, kHierThreads, kHierSmem) != cudaSuccess) {
+    return 0;
+  }
+  const int ctas = sms * per_sm;
+  cache[device] = ctas < kHierThreads ? ctas : kHierThreads;
+  return cache[device];
 }
 
 }  // namespace
@@ -504,12 +719,12 @@ extern "C" int lsd_seg_scan(const void* x, void* out, void* totals,
 // cudaError_t.
 extern "C" int lsd_exclusive_scan(const void* x, void* out, void* status,
                                   long long n, int device, void* stream) {
-  if (n < 0 || tiles_of(n) > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const long long tiles = (n + kLbTile - 1) / kLbTile;
+  if (n < 0 || tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   int prev;
   cudaError_t err = enter_device(device, &prev);
   if (err != cudaSuccess) return err;
-  const long long tiles = (n + kLbTile - 1) / kLbTile;
   scan_lookback<<<static_cast<unsigned>(tiles), kThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out),
@@ -519,15 +734,44 @@ extern "C" int lsd_exclusive_scan(const void* x, void* out, void* status,
   return err;
 }
 
-// Exclusive scan of x into out, GPUPrefixSum's way. scratch holds the
-// totals of every level: sum of ceil(m / kTile) over m = n, ceil(n /
-// kTile), ... while m > kTile. Returns a cudaError_t.
-extern "C" int lsd_scan_propagate(const void* x, void* out, void* scratch,
-                                  long long n, void* stream) {
-  if (n < 0 || tiles_of(n) > 0x7fffffffLL) return cudaErrorInvalidValue;
+// Words a CTA of exclusive_scan_hierarchical scans a round.
+extern "C" int lsd_scan_hier_block() { return kHierBlock; }
+
+// CTAs of exclusive_scan_hierarchical's grid on `device` when the data
+// fills them (the cooperative ceiling: SMs x CTAs an SM), 0 on an error.
+extern "C" int lsd_scan_hier_ctas(int device) { return hier_ctas(device); }
+
+// Exclusive scan of the n words of x into out, the reference's
+// hierarchical way (GPUPrefixSum, cu:286-302) in one cooperative launch of
+// scan_rounds on `device` (made current) and `stream`: G = min(the
+// resident CTAs, ceil(n / block)) CTAs, ceil(n / (G * block)) rounds.
+// scratch: 2 * lsd_scan_hier_ctas(device) u32 words. x must not alias
+// out. Returns a cudaError_t.
+extern "C" int lsd_scan_hierarchical(const void* x, void* out, void* scratch,
+                                     long long n, int device, void* stream) {
+  if (n < 0) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  return scan_propagate(static_cast<const uint32_t*>(x),
-                        static_cast<uint32_t*>(out),
-                        static_cast<uint32_t*>(scratch), n,
-                        static_cast<cudaStream_t>(stream));
+  int prev;
+  cudaError_t err = enter_device(device, &prev);
+  if (err != cudaSuccess) return err;
+  const long long ctas = hier_ctas(device);
+  if (ctas <= 0) {
+    err = cudaGetLastError();
+    if (err == cudaSuccess) err = cudaErrorCooperativeLaunchTooLarge;
+  } else {
+    const long long blocks = (n + kHierBlock - 1) / kHierBlock;
+    const long long grid = blocks < ctas ? blocks : ctas;
+    long long rounds = (blocks + grid - 1) / grid;
+    const uint32_t* xs = static_cast<const uint32_t*>(x);
+    uint32_t* os = static_cast<uint32_t*>(out);
+    uint32_t* ts = static_cast<uint32_t*>(scratch);
+    void* args[] = {&xs, &os, &ts, &n, &rounds};
+    err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<const void*>(scan_rounds),
+        dim3(static_cast<unsigned>(grid)), dim3(kHierThreads), args, kHierSmem,
+        static_cast<cudaStream_t>(stream));
+    if (err == cudaSuccess) err = cudaGetLastError();
+  }
+  if (prev != device) cudaSetDevice(prev);
+  return err;
 }

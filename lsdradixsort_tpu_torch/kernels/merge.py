@@ -29,8 +29,10 @@ them) `merge_pass_multi` is a merge-path merge partitioned by output:
 group, the exact co-rank of its first row in each run (the rows of that
 run the merged order puts before it), and one CTA a tile merges its
 windows, which together hold exactly TILE rows, in shared memory.
-`merge_pass_runs` computes each row's output position by binary search
-in the other runs. Neither has a capacity to overflow; the TPU knobs
+`merge_pass_runs` is the same merge over runs in separate buffers:
+`merge_runs_splits` partitions its range of ranks into tiles the same
+way, searching each run only within the range's table window, and the
+same tile merge writes them. Neither has a capacity to overflow; the TPU knobs
 (buf_elems, blk for the DMA windows, ce, pipeline, interpret) are
 accepted and change nothing.
 
@@ -348,6 +350,26 @@ def merge_tables_exact_runs(run_keys, chunk_elems: int, blk: int = DEF_BLK,
     return tab.to(torch.int32), max_pair
 
 
+def window_table(first, end, lo_rank: int,
+                 blk: int = DEF_BLK) -> torch.Tensor:
+    """A table in `merge_tables_exact_runs`' layout for one range (chunk
+    0) of `merge_pass_runs`: run s seen through rows [first[s], end[s])
+    (first[s] a multiple of LANES), the range's first rank lo_rank. Any
+    windows hold a range whose rows they cover and whose rows before
+    (after) them rank before (after) it: whole runs always do."""
+    S = len(first)
+    if any(f % LANES for f in first):
+        raise ValueError(f"window starts must be multiples of {LANES}")
+    tab = torch.zeros((16, NCOLS), dtype=torch.int64)
+    tab[0, :S] = torch.tensor(first) // LANES
+    tab[0, KWAY:KWAY + S] = -(-(torch.tensor(end) - torch.tensor(first))
+                              // blk)
+    pre = lo_rank - sum(first)
+    tab[0, 16] = (-pre) % LANES
+    tab[0, 17] = (pre + int(tab[0, 16])) // LANES
+    return tab.to(torch.int32)
+
+
 def _runs_plan(run_streams, tables, chunk0: int, nchunks: int,
                chunk_elems: int, blk: int, ncmp):
     """Validate a merge_pass_runs call; return (ncmp, lens, first, end,
@@ -397,6 +419,81 @@ def _runs_plan(run_streams, tables, chunk0: int, nchunks: int,
     return ncmp, lens, first, end, lo_rank, count
 
 
+def _candidates(run_streams, first, end):
+    """Each stream's rows [first[s], end[s]) of every run s, run by run."""
+    return [torch.cat([r.view(torch.int32)[a:b]
+                       for r, a, b in zip(rs, first, end)]).view(torch.uint32)
+            for rs in run_streams]
+
+
+def merge_runs_splits_plain(run_streams, tables, *, chunk0: int,
+                            nchunks: int, chunk_elems: int,
+                            blk: int = DEF_BLK, ncmp: int | None = None
+                            ) -> torch.Tensor:
+    """Plain PyTorch version of the partition of one range of
+    `merge_pass_runs` into output tiles: a (tiles + 1, KWAY) int32 table
+    (tiles = ceil(count / TILE)), row i the number of rows of each run
+    that the merged order puts before rank lo_rank + min(i * TILE,
+    count); 0 for runs past the last. Read off a stable sort of the rows
+    the range's windows cover (every row of a run before its window ranks
+    before the range): the source run of each merged row, counted tile by
+    tile."""
+    ncmp, lens, first, end, lo_rank, count = _runs_plan(
+        run_streams, tables, chunk0, nchunks, chunk_elems, blk, ncmp)
+    PLAIN_CALLS["merge_path_splits"] += 1
+    S = len(lens)
+    dev = run_streams[0][0].device
+    cand = _candidates(run_streams[:ncmp], first, end)
+    perm = row_order(cand, cand[0].shape[0]).view(-1)
+    src = torch.repeat_interleave(
+        torch.arange(S, device=dev),
+        torch.tensor([b - a for a, b in zip(first, end)], device=dev))[perm]
+    at = lo_rank - sum(first)
+    edges = at + torch.clamp(torch.arange(-(-count // TILE) + 1, device=dev)
+                             * TILE, max=count)
+    out = torch.zeros((edges.shape[0], KWAY), dtype=torch.int64, device=dev)
+    for s in range(S):
+        # run s's rows among the first `edge` merged candidates
+        out[:, s] = first[s] + torch.searchsorted(
+            (src == s).nonzero().view(-1), edges)
+    return out.to(torch.int32)
+
+
+def merge_runs_splits(run_streams, tables, *, chunk0: int, nchunks: int,
+                      chunk_elems: int, blk: int = DEF_BLK,
+                      ncmp: int | None = None) -> torch.Tensor:
+    """The merge-path partition of one range of `merge_pass_runs` (the
+    table of `merge_runs_splits_plain`), launched on the card by the same
+    kernel as `merge_path_splits` and counted under its name."""
+    ncmp, lens, first, end, lo_rank, count = _runs_plan(
+        run_streams, tables, chunk0, nchunks, chunk_elems, blk, ncmp)
+    key = run_streams[0][0]
+    if key.device.type == "cpu":
+        return merge_runs_splits_plain(
+            run_streams, tables, chunk0=chunk0, nchunks=nchunks,
+            chunk_elems=chunk_elems, blk=blk, ncmp=ncmp)
+    S = len(lens)
+    out = torch.empty((-(-count // TILE) + 1, KWAY), dtype=torch.int32,
+                      device=key.device)
+    ins = [run_streams[t][s] for s in range(S) for t in range(ncmp)]
+    rows = ctypes.c_longlong * S
+    with torch.cuda.device(key.device):
+        if _build.library().lsd_merge_tile() != TILE:
+            raise RuntimeError("csrc/merge.cu kTile differs from TILE")
+        fn = _build.function("lsd_merge_runs_splits", [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p])
+        stream = torch.cuda.current_stream(key.device).cuda_stream
+        _build.check(fn(_build.pointers(ins), S, ncmp, rows(*lens),
+                        rows(*first), rows(*end), lo_rank, count, ncmp,
+                        out.data_ptr(), ctypes.c_void_p(stream)),
+                     "lsd_merge_runs_splits")
+    LAUNCHES["merge_path_splits"] += 1
+    return out
+
+
 def merge_pass_runs_plain(run_streams, tables, *, chunk0: int, nchunks: int,
                           chunk_elems: int, buf_elems: int,
                           blk: int = DEF_BLK, interpret: bool | None = None,
@@ -409,9 +506,7 @@ def merge_pass_runs_plain(run_streams, tables, *, chunk0: int, nchunks: int,
     ncmp, _, first, end, lo_rank, count = _runs_plan(
         run_streams, tables, chunk0, nchunks, chunk_elems, blk, ncmp)
     PLAIN_CALLS["merge_pass_runs"] += 1
-    cand = [torch.cat([r.view(torch.int32)[a:b]
-                       for r, a, b in zip(rs, first, end)]).view(torch.uint32)
-            for rs in run_streams]
+    cand = _candidates(run_streams, first, end)
     perm = row_order(cand[:ncmp], cand[0].shape[0]).view(-1)
     at = lo_rank - sum(first)
     perm = perm[at:at + count]
@@ -433,14 +528,17 @@ def merge_pass_runs(run_streams, tables, *, chunk0: int, nchunks: int,
     merged ranks [start(chunk0), start(chunk0) + nchunks * chunk_elems)
     of these buffers, ordered by the first ncmp (default min(2, ns))
     streams unsigned, then run, then position. No capacity: any key
-    distribution goes through the kernel."""
+    distribution goes through the kernel: the range's partition into
+    output tiles (`merge_runs_splits`), then one CTA a tile."""
     ncmp, lens, first, end, lo_rank, count = _runs_plan(
         run_streams, tables, chunk0, nchunks, chunk_elems, blk, ncmp)
     key = run_streams[0][0]
+    kw = dict(chunk0=chunk0, nchunks=nchunks, chunk_elems=chunk_elems,
+              blk=blk, ncmp=ncmp)
     if key.device.type == "cpu":
-        return merge_pass_runs_plain(
-            run_streams, tables, chunk0=chunk0, nchunks=nchunks,
-            chunk_elems=chunk_elems, buf_elems=buf_elems, blk=blk, ncmp=ncmp)
+        return merge_pass_runs_plain(run_streams, tables, buf_elems=buf_elems,
+                                     **kw)
+    splits = merge_runs_splits(run_streams, tables, **kw)
     S, ns = len(lens), len(run_streams)
     ins = [run_streams[t][s] for s in range(S) for t in range(ns)]
     outs = [torch.empty(count, dtype=torch.uint32, device=key.device)
@@ -451,11 +549,12 @@ def merge_pass_runs(run_streams, tables, *, chunk0: int, nchunks: int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p])
+            ctypes.c_void_p, ctypes.c_void_p])
         stream = torch.cuda.current_stream(key.device).cuda_stream
         _build.check(fn(_build.pointers(ins), _build.pointers(outs), S, ns,
                         rows(*lens), rows(*first), rows(*end), lo_rank,
-                        count, ncmp, ctypes.c_void_p(stream)),
+                        count, ncmp, splits.data_ptr(),
+                        ctypes.c_void_p(stream)),
                      "lsd_merge_pass_runs")
     LAUNCHES["merge_pass_runs"] += 1
     return outs

@@ -16,9 +16,13 @@ steps run in order; CUDA CTAs run in no order, so on the card
     8192 words once and takes its offset from the status words of the
     CTAs before it. One C call and one launch; the status words live in
     scratch kept per stream, which every launch leaves zero.
-  * `exclusive_scan_hierarchical` is scan-then-propagate: each tile
-    scanned with its total written out, the totals scanned the same way
-    (recursively), and the offsets added back.
+  * `exclusive_scan_hierarchical` keeps the reference's three steps
+    (block totals, a scan of the totals, each block scanned plus its
+    offset) in one cooperative launch: a persistent grid walks the data
+    in rounds of one HIER_BLOCK-word block a CTA, held on chip from its
+    total to its store across a grid barrier, so each word is read and
+    written once: min(the CTAs the card holds at once, the blocks) CTAs,
+    and as many rounds as cover the blocks.
   * `block_prefix_sums` is one launch: short power-of-two blocks (the
     composed sort's histogram rows) are scanned in registers, a lane or a
     few lanes of a warp a block; other blocks by the tile scan, segmented
@@ -56,6 +60,8 @@ PLAIN_CALLS = dict.fromkeys(_NAMES, 0)
 
 
 _DTYPES = frozenset(_WORDS + _NARROW)
+HIER_BLOCK = 16 * 512 * 4   # words a CTA of the hierarchical scan holds a
+#                             round (kHierBlock, csrc/scan.cu)
 
 
 def _check(x: torch.Tensor) -> None:
@@ -155,14 +161,6 @@ def _status(dev: int, stream: int, words: int) -> torch.Tensor:
     return buf
 
 
-def _stream(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
-
-
-def _ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-
 def exclusive_scan(x: torch.Tensor, block_rows: int = 512,
                    interpret: bool | None = None) -> torch.Tensor:
     """Exclusive prefix sum of a 1-D integer tensor (any length), mod 2^k,
@@ -188,6 +186,31 @@ def exclusive_scan(x: torch.Tensor, block_rows: int = 512,
     return out
 
 
+@functools.cache
+def _hier():
+    """(the card's CTA ceiling for the hierarchical scan, by device; its C
+    entry)."""
+    lib = _build.library()
+    if lib.lsd_scan_hier_block() != HIER_BLOCK:
+        raise RuntimeError("csrc/scan.cu kHierBlock differs from HIER_BLOCK")
+    lib.lsd_scan_hier_ctas.argtypes = [ctypes.c_int]
+    lib.lsd_scan_hier_ctas.restype = ctypes.c_int
+    return lib.lsd_scan_hier_ctas, _build.function(
+        "lsd_scan_hierarchical", [ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_void_p, ctypes.c_longlong,
+                                  ctypes.c_int, ctypes.c_void_p])
+
+
+def hierarchical_ctas(device: torch.device) -> int:
+    """CTAs of the hierarchical scan the card holds at once (its SMs times
+    the CTAs an SM takes): the grid of a scan that fills them."""
+    ctas = _hier()[0](torch.device(device).index or 0)
+    if ctas <= 0:
+        raise RuntimeError("lsd_scan_hier_ctas: no cooperative launch of "
+                           "scan_rounds fits this card")
+    return ctas
+
+
 def exclusive_scan_hierarchical(x: torch.Tensor, block_rows: int = 512,
                                 interpret: bool | None = None
                                 ) -> torch.Tensor:
@@ -201,19 +224,13 @@ def exclusive_scan_hierarchical(x: torch.Tensor, block_rows: int = 512,
     x = x.contiguous()
     n = x.shape[0]
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        tile = _tile()
-        scratch_len, m = 0, n
-        while m > tile:
-            m = -(-m // tile)
-            scratch_len += m
-        scratch = torch.empty(max(scratch_len, 1), dtype=x.dtype,
-                              device=x.device)
-        fn = _build.function("lsd_scan_propagate", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_void_p])
-        _build.check(fn(_ptr(x), _ptr(out), _ptr(scratch), n, _stream(x)),
-                     "lsd_scan_propagate")
+    dev = x.device.index
+    # two round parities of one total a CTA
+    scratch = torch.empty(2 * hierarchical_ctas(x.device), dtype=x.dtype,
+                          device=x.device)
+    _build.check(_hier()[1](x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                            n, dev, torch._C._cuda_getCurrentRawStream(dev)),
+                 "lsd_scan_hierarchical")
     LAUNCHES["exclusive_scan_hierarchical"] += 1
     return out
 

@@ -145,3 +145,25 @@ def test_cpu_calls_leave_the_c_entries_and_counters_alone():
     assert T._lookback.cache_info().currsize == 0
     assert T.LAUNCHES == launches
     assert T.PLAIN_CALLS["block_prefix_sums"] == plain["block_prefix_sums"] + 3
+
+
+# the hierarchical scan's grid on an H100 SXM: 132 SMs, one CTA of
+# scan_rounds (128 KB of shared memory) each, a block of HIER_BLOCK words
+# a CTA a round
+H100_CTAS = 132
+ROUND = H100_CTAS * T.HIER_BLOCK     # words a round of a full grid covers
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.int32])
+@pytest.mark.parametrize("n", [1, T.HIER_BLOCK - 1, T.HIER_BLOCK,
+                               T.HIER_BLOCK + 1, ROUND - 1, ROUND,
+                               ROUND + 1, 2 * T.HIER_BLOCK + 4 * 1001 + 3])
+def test_exclusive_scan_hierarchical_edge_lengths(n, dtype):
+    # the kernel's edges: one word, a block and a round of the grid plan
+    # each side, a length that is no multiple of 4; full-range words wrap
+    a = _words(n, seed=61).view(dtype)
+    got = T.exclusive_scan_hierarchical(from_numpy(a))
+    v = a.view(np.uint32).astype(np.uint64)
+    want = ((np.cumsum(v) - v) & 0xFFFFFFFF).astype(np.uint32)
+    assert got.dtype == from_numpy(a).dtype
+    np.testing.assert_array_equal(to_numpy(got).view(np.uint32), want)
