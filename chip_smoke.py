@@ -6,16 +6,24 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. Device: the card's name, its power limit (nvidia-smi), the build of
-   the port's CUDA kernels from the sources in this checkout, and the
+   the port's CUDA kernels from the sources in this checkout (with the
+   registers and spills of each cluster_sort build, and the cluster size
+   C and rows a thread E of each word count's 2^15-row tile), and the
    card's copy ceiling (core/roofline.py `measure_copy_gbps`), the
    denominator of every bound below.
 2. Each kernel against its plain PyTorch version on the card, bit for
-   bit, on uniform, all-equal, presorted, reversed, 97-distinct and
-   {0, 0xFFFFFFFF} keys at n = 2^22: tile sorts with 1, 2 and 3 streams
-   at the 2^15-row tile; merge passes with 1, 2 and 3 streams at run_len
-   2^15 and 2^18, and a 4-run group, plus the signed-val tiebreak of
-   sort_tiles_kv; the tile sort and merge passes at ncmp = 3 (hi, lo,
-   position), with and without a rider; merge_pass_runs and its range
+   bit, on uniform, all-equal, presorted, reversed, 97-distinct,
+   {0, 0xFFFFFFFF} and "cluster boundary" keys (rows i, i + 2^13, i + 2^14
+   and i + 3 * 2^13 of a tile tied: the pairs the cluster tile sort's
+   cross-CTA stages compare) at n = 2^22: tile sorts with 1, 2 and 3
+   streams at the 2^15-row tile; merge passes with 1, 2 and 3 streams at
+   run_len 2^15 and 2^18, and a 4-run group, plus the signed-val tiebreak
+   of sort_tiles_kv (also on the boundary keys); the tile sort and merge
+   passes at ncmp = 3 (hi, lo, position), with and without a rider (the
+   tile sort's 3 and 4 words); one cluster_sort launch a tile-sort call
+   of 2..4 words at the 2^15-row tile, one bitonic_local of 1, and no
+   bitonic_stage; the kv and 3-word tile sorts at tiles of 2^18 rows,
+   their stages above the cluster's span as bitonic_stage passes; merge_pass_runs and its range
    partition (merge_runs_splits) on every range of merge_runs_chunked
    (trimmed buffers) of each family cut into S = 8, 4, 2 sorted runs at
    nranges = 1, 2, 4, of the skewed layout of tests/test_bigsort.py:64-83
@@ -106,7 +114,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    exclusive_scan_hierarchical only in the runner, whose scan/hier suite
    is its one caller), and no plain version ran; merge_pass_runs
    launched exactly once a range (2 a chunked sort), the hierarchical
-   scan exactly 7 times in the runner. shuffle_elem_runs has
+   scan exactly 7 times in the runner; on every path one cluster_sort a
+   sort_tiles_kv or sort_tiles_multi call, one bitonic_local a
+   sort_tiles call, and no bitonic_stage. shuffle_elem_runs has
    no caller on any path, in either package: its launches are 0. Then one
    composed sort at each r = 1, 2, 4, 8 launches block_prefix_sums and
    transpose_tiled 32 / r times each, with no plain call.
@@ -227,9 +237,24 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = _build.build()
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
+    log = lib.with_suffix(".log").read_text().splitlines()
+    for line in log:
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print(f"  {line.strip()}")
+    # the cluster tile sort: registers and spills of each build, and the
+    # plan of the paths' 2^15-row tile
+    for i, line in enumerate(log):
+        if "Compiling entry" in line and "cluster_sort" in line:
+            tmpl = line.split("cluster_sortI")[1].split("EEEv")[0]
+            props = [x.split(":", 1)[-1].strip() for x in log[i + 1:i + 4]
+                     if "Used" in x or "spill" in x]
+            print(f"cluster_sort<{tmpl}>: {'; '.join(props)}")
+    for w in (2, 3, 4):
+        p = TS.tile_plan(w, 15, 1 << 27)
+        print(f"cluster_sort {w} words, 2^15-row tile: C={p.cluster} CTAs "
+              f"of 2^{p.rows_log2} rows, E={1 << p.group_log2} rows a "
+              f"thread, {p.threads} threads, {p.smem_bytes} B of shared "
+              f"memory, {len(p.steps)} steps")
     ceiling = roofline.measure_copy_gbps(dev)
     roof = roofline.detect(dev)
     print(f"copy ceiling: {ceiling:.1f} GB/s (dst.copy_(src) of 1 GiB, read "
@@ -256,6 +281,11 @@ def main() -> int:
             "distinct97": random_keys_bounded(n, 0, 97, seed, dev),
             "extremes": (random_keys_bounded(n, 0, 2, seed, dev)
                          .view(torch.int32).neg().view(torch.uint32)),
+            # rows i, i + 2^13, i + 2^14 and i + 3 * 2^13 of each 2^15-row
+            # tile share a key: the pairs of the cluster's cross-CTA stages
+            "cluster_boundary": (random_keys_bounded(n // 4, 0, 5, seed, dev)
+                                 .view(-1, 1, 1 << 13).expand(-1, 4, -1)
+                                 .reshape(-1)),
         }
 
     max_err = {k: 0 for k in ("sort_tiles", "sort_tiles_kv",
@@ -311,12 +341,15 @@ def main() -> int:
                             streams[0], streams[1:], 1 << run_log2)),
                         key_and_list(M.merge_pass_multi_plain(
                             streams[0], streams[1:], 1 << run_log2)))
-    # signed-val tiebreak of sort_tiles_kv: tied keys, vals across 2^31
-    x = random_keys_bounded(n2, 0, 4, 3, dev)
+    # signed-val tiebreak of sort_tiles_kv: tied keys, vals across 2^31,
+    # also tied across the cluster's CTAs
     vals = random_keys(n2, 4, dev)
-    compare("sort_tiles_kv", "signed tiebreak",
-            list(TS.sort_tiles_kv(x, vals, tile_rows)),
-            list(TS.sort_tiles_kv_plain(x, vals, tile_rows)))
+    for what, x in (("signed tiebreak", random_keys_bounded(n2, 0, 4, 3, dev)),
+                    ("signed tiebreak cluster_boundary",
+                     families(n2, 3)["cluster_boundary"])):
+        compare("sort_tiles_kv", what,
+                list(TS.sort_tiles_kv(x, vals, tile_rows)),
+                list(TS.sort_tiles_kv_plain(x, vals, tile_rows)))
     # compared payload with ties and a rider; a group of only 4 runs
     v0 = random_keys_bounded(n2, 0, 3, 5, dev)
     compare("sort_tiles_multi", "tied val0 + rider",
@@ -348,6 +381,53 @@ def main() -> int:
                                                         ncmp=3)),
                         key_and_list(M.merge_pass_multi_plain(
                             k3, v3, 1 << run_log2, ncmp=3)))
+    # one cluster_sort launch a call of 2..4 words at the 2^15-row tile
+    # (no bitonic_stage, no gather), bitonic_local for keys alone; then
+    # tiles of 2^18 rows, whose stages above the cluster's span run as
+    # bitonic_stage passes between cluster_sort launches
+    x = families(n2, 7)["cluster_boundary"]
+    calls = {
+        "sort_tiles": (lambda: one(TS.sort_tiles(x, tile_rows)), 1),
+        "sort_tiles_kv": (lambda: list(TS.sort_tiles_kv(x, vals,
+                                                        tile_rows)), 2),
+        "sort_tiles_multi key+pos+payload": (lambda: key_and_list(
+            TS.sort_tiles_multi(x, [iota, pay], tile_rows)), 3),
+        "sort_tiles_multi ncmp=3": (lambda: key_and_list(
+            TS.sort_tiles_multi(x, [lo3, iota], tile_rows, ncmp=3)), 3),
+        "sort_tiles_multi ncmp=3 + rider": (lambda: key_and_list(
+            TS.sort_tiles_multi(x, [lo3, iota, pay], tile_rows, ncmp=3)), 4),
+    }
+    for what, (call, words) in calls.items():
+        before = dict(TS.KERNEL_LAUNCHES)
+        call()
+        got = {k: v - before[k] for k, v in TS.KERNEL_LAUNCHES.items()}
+        want_l = ({"bitonic_local": 1, "bitonic_stage": 0, "cluster_sort": 0}
+                  if words == 1 else
+                  {"bitonic_local": 0, "bitonic_stage": 0, "cluster_sort": 1})
+        print(f"phase 2: {what} ({words} words) at the 2^15-row tile: "
+              f"kernel launches {got}")
+        if got != want_l:
+            raise AssertionError(f"{what}: launches {got}, not {want_l}")
+    big_rows = (1 << 18) // TS.LANES
+    for fam, x in families(n2, 8).items():
+        if fam not in ("uniform", "distinct97", "cluster_boundary"):
+            continue
+        before = dict(TS.KERNEL_LAUNCHES)
+        compare("sort_tiles_kv", f"{fam} tile=2^18",
+                list(TS.sort_tiles_kv(x, vals, big_rows)),
+                list(TS.sort_tiles_kv_plain(x, vals, big_rows)))
+        compare("sort_tiles_multi", f"{fam} tile=2^18 streams=3",
+                key_and_list(TS.sort_tiles_multi(x, [iota, pay], big_rows)),
+                key_and_list(TS.sort_tiles_multi_plain(x, [iota, pay],
+                                                       big_rows)))
+        got = {k: v - before[k] for k, v in TS.KERNEL_LAUNCHES.items()}
+        want_l = {k: sum(TS.tile_plan(w, 18, n2).launches()[k]
+                         for w in (2, 3)) for k in got}
+        if got != want_l:
+            raise AssertionError(f"tile 2^18: launches {got}, not {want_l}")
+    print(f"phase 2: tiles of 2^18 rows, 2 and 3 words: bit exact; kernel "
+          f"launches {got} a family (the stages above the cluster's span "
+          f"as bitonic_stage passes)")
     del lo3
     # the merge-path merge's edges: all-equal keys, few uniques and
     # uniform keys; 1, 2, 3 and 8 streams at every ncmp they allow; runs of
@@ -979,9 +1059,14 @@ def main() -> int:
             for counts in (mod.LAUNCHES, mod.PLAIN_CALLS):
                 for k in counts:
                     counts[k] = 0
+        for k in TS.KERNEL_LAUNCHES:
+            TS.KERNEL_LAUNCHES[k] = 0
 
     def read_counts():
-        return ({k: v for mod in modules for k, v in mod.LAUNCHES.items()},
+        """Launches by wrapper, with the tile sorts' launches by kernel
+        (bitonic_local, bitonic_stage, cluster_sort), and plain calls."""
+        return ({k: v for mod in modules for k, v in mod.LAUNCHES.items()}
+                | TS.KERNEL_LAUNCHES,
                 {k: v for mod in modules for k, v in mod.PLAIN_CALLS.items()})
 
     reset_counts()
@@ -1144,9 +1229,11 @@ def main() -> int:
     shuffle_kernels = ("shuffle_row_runs", "shuffle_elem_runs")
     # exclusive_scan_hierarchical runs on the bench runner's scan/hier
     # only: exclusive_scan no longer hands it its tile totals
+    # (bitonic_stage runs only for tiles above a cluster's span: no path)
     sort_kernels = tuple(k for k in sort_launches
                          if k not in query_kernels + shuffle_kernels
-                         + ("merge_pass_runs", "exclusive_scan_hierarchical"))
+                         + ("merge_pass_runs", "exclusive_scan_hierarchical",
+                            "bitonic_stage"))
     merge_kernels = ("sort_tiles_multi", "merge_path_splits",
                      "merge_pass_multi")
     # each path, its counts, and the kernels it must have launched
@@ -1174,6 +1261,14 @@ def main() -> int:
         if idle:
             raise AssertionError(f"{pname}: kernels never launched on the "
                                  f"path: {idle}")
+        # the paths' tiles fit a cluster: one cluster_sort a call of 2..4
+        # words, one bitonic_local a keys-only call, no bitonic_stage
+        tiles = {"bitonic_local": lc["sort_tiles"], "bitonic_stage": 0,
+                 "cluster_sort": lc["sort_tiles_kv"] + lc["sort_tiles_multi"]}
+        if any(lc[k] != v for k, v in tiles.items()):
+            raise AssertionError(f"{pname}: tile sort kernel launches "
+                                 f"{ {k: lc[k] for k in tiles} }, not "
+                                 f"{tiles}")
         if any(pc.values()):
             raise AssertionError(f"{pname}: plain versions ran")
     # exact counts: merge_pass_runs once a range, NRANGES a chunked sort

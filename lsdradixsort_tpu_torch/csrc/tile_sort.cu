@@ -8,35 +8,108 @@
 // then the row's index inside its tile when payloads ride). Word 1 is
 // compared after XOR with `flip1` (0x80000000 compares it as a signed
 // int32, the sort_tiles_kv rule). A pair whose words tie never swaps.
+// Phase kl of the network is ascending unless bit kl of the row's index in
+// its tile is set; the last phase (kl == tile_log2) is ascending everywhere.
 //
-// What bounds it on the H100: a 2^15-row tile of one word is 128 KB and
-// fits one block's shared memory (227 KB), but 2, 3 or 4 words (256,
-// 384 or 512 KB) do not. Design: a shared-memory kernel sorts sub-tiles of
-// S = 2^sub_log2 rows (128 KB of words at most) and finishes the low
-// stages (distance < S) of every later bitonic phase; the few stages with
-// distance >= S run as one compare-exchange pass over device memory each,
-// one thread per pair, reading and writing whole rows. For T = 2^15 that
-// is 0, 1 or 3 device-memory stages for 1, 2 or 3-4 words. Each stage
-// moves every word twice through device memory (3.35 TB/s), so the sort is
-// bandwidth bound; making the sub-tile larger (clusters sharing shared
-// memory) is the next step.
+// What bounds it on the H100: the network does log2(T)(log2(T)+1)/2
+// compare-exchange stages, about 120 at the paths' 2^15-row tile, and the
+// words cross device memory (3.35 TB/s) only once each way at best. The
+// TPU kernel keeps the whole tile in VMEM for every stage; one SM's shared
+// memory (227 KB) holds a 2^15-row tile of one word (128 KB) but not of 2,
+// 3 or 4 words (256, 384 or 512 KB).
 //
-// Riding payloads are not moved by the network: the host adds the row's
-// index in its tile as the last compared word (unique, so the sort is
-// stable) and lsd_gather_tiles moves each rider by that index afterwards.
+// Two designs:
+//
+// * One word (sort_tiles): bitonic_local sorts a tile in one block's shared
+//   memory, one shared-memory round trip and barrier a stage. Tiles above
+//   2^15 rows run their stages of distance >= 2^15 as device-memory passes
+//   (bitonic_stage), one thread a pair.
+//
+// * Two to four words (sort_tiles_kv, sort_tiles_multi): cluster_sort, one
+//   thread-block cluster of C CTAs a tile, each CTA holding R = 2^rows_log2
+//   rows of every word in its shared memory (C*R = 2^15 rows at the paths'
+//   tile: C = 2 for 2 and 3 words, 4 for 4), so the words cross device
+//   memory once each way. The host hands the kernel its schedule ("steps",
+//   kernels/tile_sort.py `tile_plan`); each step is one shared-memory round
+//   trip, in which each thread takes its groups of E = 2^G rows into
+//   registers one after another:
+//     - a register group: the E rows that differ only in bits b..b+G-1 of
+//       the row index, on which the thread runs up to G consecutive stages
+//       of one phase (the set is closed under each stage's partner map
+//       i ^ 2^jl, and the direction, bit kl of the row, is the same for
+//       all of it since kl lies outside those bits). About 26-34 round
+//       trips instead of 120 stages; the first step runs phases 1..G
+//       straight from the load, the last stores straight from registers;
+//     - a cross-CTA stage (distance 2^jl >= R) first: each thread reads its
+//       rows' partners from the partner CTA's shared memory (distributed
+//       shared memory), keeps its own side of each pair (the min on the low
+//       side of an ascending pair), and a cluster barrier keeps every read
+//       ahead of any write; no CTA writes another's memory.
+//   What then bounds it is the integer pipe (half the rate of the FP32
+//   one): a compare-exchange of 3 or 4 words is a subtract-with-borrow
+//   chain and one LOP3 a word and side, of 2 words a 64-bit compare and
+//   selects; shared memory is swizzled, word w of local row i at
+//   w * RS + (i ^ ((i >> G) & 31)), so the 32 rows a warp touches per access
+//   lie in 32 banks at every b. Riders are gathered at the store by the
+//   index word, which never reaches device memory. Tiles larger than the
+//   cluster's span run their stages of distance >= C*R as device-memory
+//   passes (bitonic_stage) and the cluster kernel finishes each phase's
+//   lower stages.
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxWords = 4;
 constexpr int kBlockThreads = 1024;
 constexpr int kStageThreads = 256;
+constexpr int kMaxRiders = 16;
+constexpr int kMaxSteps = 64;
+constexpr int kSmemLimit = 232448;
 
 struct Words {
   const uint32_t* src[kMaxWords];  // nullptr: the row's index in its tile
-  uint32_t* dst[kMaxWords];
+  uint32_t* dst[kMaxWords];        // nullptr: not stored (cluster_sort)
 };
+
+struct Riders {
+  const uint32_t* src[kMaxRiders];
+  uint32_t* dst[kMaxRiders];
+  int count;
+};
+
+// One cluster launch's schedule, encoded as in kernels/tile_sort.py.
+struct Steps {
+  int count;
+  int code[kMaxSteps];
+};
+
+struct Shape {
+  int tile_log2;
+  int rows_log2;
+  uint32_t flip1;
+};
+
+enum : int { kStage = 0, kFirst = 1, kGroup = 2 };
+
+// kStage: a device-memory stage (kl, jl = jx). kFirst: phases 1..kl, all
+// in registers (bits 0..G-1). kGroup: the cross-CTA stage jx (-1: none),
+// then stages jhi..jlo (-1: none) in registers over bits b..b+G-1.
+struct Step {
+  int kind, kl, jx, jhi, jlo, b;
+};
+
+__host__ __device__ __forceinline__ Step decode(int c) {
+  return Step{c & 3,
+              (c >> 2) & 31,
+              ((c >> 7) & 31) - 1,
+              ((c >> 12) & 31) - 1,
+              ((c >> 17) & 31) - 1,
+              (c >> 22) & 31};
+}
 
 template <int W>
 __device__ __forceinline__ bool greater(const uint32_t (&a)[W],
@@ -108,7 +181,7 @@ bitonic_local(Words io, int tile_log2, int sub_log2, int k_begin, int k_end,
   }
 }
 
-// One compare-exchange stage at distance 2^jl >= S over device memory, in
+// One compare-exchange stage at distance 2^jl over device memory, in
 // place on io.dst: one thread per pair.
 template <int W>
 __global__ void __launch_bounds__(kStageThreads)
@@ -135,94 +208,618 @@ bitonic_stage(Words io, long long npairs, int tile_log2, int kl, int jl,
   }
 }
 
-__global__ void __launch_bounds__(kStageThreads)
-gather_tiles(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
-             const uint32_t* __restrict__ idx, long long n, int tile_log2) {
-  const long long g =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (g >= n) return;
-  const long long tile_base = (g >> tile_log2) << tile_log2;
-  dst[g] = src[tile_base + idx[g]];
+// ---- cluster_sort: words 2..4 ----------------------------------------------
+
+template <int G>
+__device__ __forceinline__ uint32_t swizzle(uint32_t i) {
+  return i ^ ((i >> G) & 31u);
 }
 
-// Largest sub-tile whose W words fit 128 KB of shared memory.
-constexpr int sub_log2_max(int W) { return W == 1 ? 15 : (W == 2 ? 14 : 13); }
-static_assert(4 * (1 << sub_log2_max(kMaxWords)) * kMaxWords <= 128 * 1024,
-              "a sub-tile of kMaxWords words must fit 128 KB");
+// Whether row a orders after row b: its words compared lexicographically
+// as one 64- or 128-bit integer (word 1 already XORed with flip1), so the
+// compare is one chain of extended integer compares.
+template <int W>
+__device__ __forceinline__ bool greater_row(const uint32_t (&a)[W],
+                                            const uint32_t (&b)[W]) {
+  using u64 = unsigned long long;
+  const u64 x = (static_cast<u64>(a[0]) << 32) | a[1];
+  const u64 y = (static_cast<u64>(b[0]) << 32) | b[1];
+  if constexpr (W == 2) {
+    return x > y;
+  } else {
+    // words (0, 1, 2[, 3]) as the 128-bit integer whose high half is word 0
+    // (W = 3) or words 0, 1 (W = 4)
+    using u128 = unsigned __int128;
+    const u64 xh = W == 3 ? a[0] : x, yh = W == 3 ? b[0] : y;
+    const u64 xl = W == 3 ? (static_cast<u64>(a[1]) << 32) | a[2]
+                          : (static_cast<u64>(a[2]) << 32) | a[3];
+    const u64 yl = W == 3 ? (static_cast<u64>(b[1]) << 32) | b[2]
+                          : (static_cast<u64>(b[2]) << 32) | b[3];
+    return ((static_cast<u128>(xh) << 64) | xl) >
+           ((static_cast<u128>(yh) << 64) | yl);
+  }
+}
+
+// All ones if row a (3 or 4 words) orders after row b, else 0: the borrow
+// out of b - a, taken word by word from the last (one subtract with borrow
+// a word).
+template <int W>
+__device__ __forceinline__ uint32_t greater_mask(const uint32_t (&a)[W],
+                                                 const uint32_t (&b)[W]) {
+  static_assert(W == 3 || W == 4, "two words compare as one 64-bit value");
+#ifdef __CUDA_ARCH__
+  uint32_t m;
+  if constexpr (W == 3) {
+    asm("{\n\t.reg .u32 t;\n\t"
+        "sub.cc.u32 t, %6, %3;\n\t"
+        "subc.cc.u32 t, %5, %2;\n\t"
+        "subc.cc.u32 t, %4, %1;\n\t"
+        "subc.u32 %0, 0, 0;\n\t}"
+        : "=r"(m)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(b[0]), "r"(b[1]), "r"(b[2]));
+  } else {
+    asm("{\n\t.reg .u32 t;\n\t"
+        "sub.cc.u32 t, %8, %4;\n\t"
+        "subc.cc.u32 t, %7, %3;\n\t"
+        "subc.cc.u32 t, %6, %2;\n\t"
+        "subc.cc.u32 t, %5, %1;\n\t"
+        "subc.u32 %0, 0, 0;\n\t}"
+        : "=r"(m)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+          "r"(b[2]), "r"(b[3]));
+  }
+  return m;
+#else
+  return greater_row<W>(a, b) ? ~0u : 0u;
+#endif
+}
+
+// Compare-exchange of register rows e < f: the larger to f; tied rows
+// stay. Two words select by the predicate of one 64-bit compare; three or
+// four by the borrow mask, with one LOP3 a word and side (fewer integer
+// instructions than a compare chain and selects).
+template <int W, int E>
+__device__ __forceinline__ void exchange(uint32_t (&v)[W][E], int e,
+                                         int f) {
+  uint32_t a[W], b[W];
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    a[w] = v[w][e];
+    b[w] = v[w][f];
+  }
+  if constexpr (W >= 3) {
+    const uint32_t m = greater_mask<W>(a, b);
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      v[w][e] = (a[w] & ~m) | (b[w] & m);
+      v[w][f] = (b[w] & ~m) | (a[w] & m);
+    }
+  } else {
+    const bool swap = greater_row<W>(a, b);
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      v[w][e] = swap ? b[w] : a[w];
+      v[w][f] = swap ? a[w] : b[w];
+    }
+  }
+}
+
+// The N stages s = N-1..0 of one phase over the thread's E rows (row e
+// against e | 2^s), in one direction. N is a template parameter so that a
+// step runs without a branch between its stages.
+template <int W, int G, int N, bool DOWN>
+__device__ __forceinline__ void stages(uint32_t (&v)[W][1 << G]) {
+#pragma unroll
+  for (int s = N - 1; s >= 0; --s) {
+#pragma unroll
+    for (int e = 0; e < (1 << G); ++e) {
+      if (e & (1 << s)) continue;
+      if (DOWN) {
+        exchange<W, 1 << G>(v, e | (1 << s), e);
+      } else {
+        exchange<W, 1 << G>(v, e, e | (1 << s));
+      }
+    }
+  }
+}
+
+template <int W, int G, bool DOWN>
+__device__ __forceinline__ void stages_n(uint32_t (&v)[W][1 << G], int n) {
+  switch (n) {
+    case 1: stages<W, G, 1, DOWN>(v); break;
+    case 2: stages<W, G, 2, DOWN>(v); break;
+    case 3: stages<W, G, 3, DOWN>(v); break;
+    case 4: stages<W, G, 4, DOWN>(v); break;
+    default:
+      if constexpr (G >= 5) stages<W, G, 5, DOWN>(v);
+      break;
+  }
+}
+
+// Stages b + n - 1 .. b of one phase on the thread's rows (the rows over
+// bits b..b+G-1, n <= G), all in one direction: a branch, the same for a
+// whole warp but in the first phases.
+template <int W, int G>
+__device__ __forceinline__ void group_stages(uint32_t (&v)[W][1 << G], int n,
+                                             bool down) {
+  if (down) {
+    stages_n<W, G, true>(v, n);
+  } else {
+    stages_n<W, G, false>(v, n);
+  }
+}
+
+// Phases 1..kg (kg <= G) on the thread's E consecutive rows; row0 is the
+// tile index of its first row (bits 0..G-1 clear). Below phase G the
+// direction of a pair is bit k of e, known here; phase G's is bit G of
+// row0, the same for all the thread's rows.
+template <int W, int G>
+__device__ __forceinline__ void first_phases(uint32_t (&v)[W][1 << G],
+                                             int kg, int t, uint32_t row0) {
+  constexpr int E = 1 << G;
+#pragma unroll
+  for (int k = 1; k < G; ++k) {
+    if (k > kg) continue;
+#pragma unroll
+    for (int j = k - 1; j >= 0; --j) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        if (e & (1 << j)) continue;
+        const int f = e | (1 << j);
+        if (k < t && ((e >> k) & 1)) {
+          exchange<W, E>(v, f, e);
+        } else {
+          exchange<W, E>(v, e, f);
+        }
+      }
+    }
+  }
+  if (kg == G) {
+    group_stages<W, G>(v, G, G < t && ((row0 >> G) & 1));
+  }
+}
+
+// Device memory <-> registers for the thread's rows base | e << b of the
+// CTA starting at global row cta_base: 16-byte vectors where the rows are
+// consecutive (b == 0) and the pointer allows, words otherwise. Word 1 is
+// XORed with flip1 on the way in and out; a null source is the row's index
+// in its tile.
+template <int W, int G>
+__device__ __forceinline__ void load_rows(uint32_t (&v)[W][1 << G],
+                                          const Words& io, const Shape& sh,
+                                          long long cta_base,
+                                          uint32_t cta_off, uint32_t base,
+                                          int b) {
+  constexpr int E = 1 << G;
+  const uint32_t tmask = (1u << sh.tile_log2) - 1u;
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    const uint32_t f = w == 1 ? sh.flip1 : 0u;
+    const uint32_t* s = io.src[w];
+    if (s == nullptr) {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        v[w][e] = (cta_off | base | (static_cast<uint32_t>(e) << b)) & tmask;
+    } else if (b == 0 &&
+               (reinterpret_cast<uintptr_t>(s + cta_base) & 15) == 0) {
+      const uint4* p = reinterpret_cast<const uint4*>(s + cta_base + base);
+#pragma unroll
+      for (int q = 0; q < E / 4; ++q) {
+        const uint4 x = p[q];
+        v[w][4 * q] = x.x ^ f;
+        v[w][4 * q + 1] = x.y ^ f;
+        v[w][4 * q + 2] = x.z ^ f;
+        v[w][4 * q + 3] = x.w ^ f;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        v[w][e] = s[cta_base + (base | (static_cast<uint32_t>(e) << b))] ^ f;
+    }
+  }
+}
+
+template <int W, int G>
+__device__ __forceinline__ void store_rows(const uint32_t (&v)[W][1 << G],
+                                           const Words& io, const Riders& rd,
+                                           const Shape& sh,
+                                           long long cta_base, uint32_t base,
+                                           int b) {
+  constexpr int E = 1 << G;
+  const long long tile_mask = (1LL << sh.tile_log2) - 1;
+  auto put = [&](uint32_t* d, const uint32_t (&x)[E]) {
+    if (b == 0 && (reinterpret_cast<uintptr_t>(d + cta_base) & 15) == 0) {
+      uint4* p = reinterpret_cast<uint4*>(d + cta_base + base);
+#pragma unroll
+      for (int q = 0; q < E / 4; ++q)
+        p[q] = make_uint4(x[4 * q], x[4 * q + 1], x[4 * q + 2],
+                          x[4 * q + 3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        d[cta_base + (base | (static_cast<uint32_t>(e) << b))] = x[e];
+    }
+  };
+#pragma unroll
+  for (int w = 0; w < W; ++w) {
+    if (io.dst[w] == nullptr) continue;
+    const uint32_t f = w == 1 ? sh.flip1 : 0u;
+    uint32_t x[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) x[e] = v[w][e] ^ f;
+    put(io.dst[w], x);
+  }
+  // riders: each output row takes the rider of the row its index word names
+  for (int k = 0; k < rd.count; ++k) {
+    uint32_t x[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const long long g =
+          cta_base + (base | (static_cast<uint32_t>(e) << b));
+      x[e] = rd.src[k][(g & ~tile_mask) + v[W - 1][e]];
+    }
+    put(rd.dst[k], x);
+  }
+}
+
+// Shared-memory offsets of a thread's rows base | e << b: row e at
+// pb ^ q(e), where q is linear in e (the swizzle is an XOR of the row's
+// bits), so q(e) is the XOR of q(2^k) over the bits k of e.
+template <int G>
+struct Offsets {
+  uint32_t pb;
+  uint32_t qb[G];
+  __device__ __forceinline__ Offsets(uint32_t base, int b)
+      : pb(swizzle<G>(base)) {
+#pragma unroll
+    for (int k = 0; k < G; ++k) qb[k] = swizzle<G>(1u << (b + k));
+  }
+  __device__ __forceinline__ uint32_t operator()(int e) const {
+    uint32_t p = pb;
+#pragma unroll
+    for (int k = 0; k < G; ++k)
+      if ((e >> k) & 1) p ^= qb[k];
+    return p;
+  }
+};
+
+template <int W, int G, int RS>
+__device__ __forceinline__ void read_smem(uint32_t (&v)[W][1 << G],
+                                          const uint32_t* sm,
+                                          const Offsets<G>& at) {
+#pragma unroll
+  for (int e = 0; e < (1 << G); ++e) {
+    const uint32_t* p = sm + at(e);
+#pragma unroll
+    for (int w = 0; w < W; ++w) v[w][e] = p[w * RS];
+  }
+}
+
+template <int W, int G, int RS>
+__device__ __forceinline__ void write_smem(const uint32_t (&v)[W][1 << G],
+                                           uint32_t* sm,
+                                           const Offsets<G>& at) {
+#pragma unroll
+  for (int e = 0; e < (1 << G); ++e) {
+    uint32_t* p = sm + at(e);
+#pragma unroll
+    for (int w = 0; w < W; ++w) p[w * RS] = v[w][e];
+  }
+}
+
+// One cluster of C CTAs a span of C * 2^rows_log2 rows (or one CTA a run of
+// whole tiles), running `prog`; see the header. A thread holds E rows at a
+// time and takes the CTA's 2^rows_log2 / (E * blockDim.x) groups of them
+// in turn at every step.
+template <int W, int G, int THREADS, int RS>
+__global__ void __launch_bounds__(THREADS, 1)
+cluster_sort(Words io, Riders rd, Steps prog, Shape sh) {
+  constexpr int E = 1 << G;
+  extern __shared__ uint32_t sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = sh.rows_log2;
+  const int t = sh.tile_log2;
+  const uint32_t groups = (1u << (r - G)) / blockDim.x;
+  const uint32_t rank = cluster.block_rank();
+  const long long cta_base = static_cast<long long>(blockIdx.x) << r;
+  const uint32_t cta_off =
+      static_cast<uint32_t>(cta_base) & ((1u << t) - 1u);
+  uint32_t v[W][E];
+  for (int i = 0; i < prog.count; ++i) {
+    const Step st = decode(prog.code[i]);
+    const int b = st.b;
+    const bool from_global = i == 0 && st.jx < 0;
+    if (i == 0 && st.jx >= 0) {
+      // a cross-CTA stage first: the partner must hold its rows first
+      for (uint32_t l = threadIdx.x; l < (1u << r); l += blockDim.x) {
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          const uint32_t* s = io.src[w];
+          const uint32_t f = w == 1 ? sh.flip1 : 0u;
+          sm[w * RS + swizzle<G>(l)] =
+              s ? s[cta_base + l] ^ f : (cta_off | l) & ((1u << t) - 1u);
+        }
+      }
+    }
+    if (st.jx >= 0) {
+      cluster.sync();  // the partner's rows are in place
+    } else if (!from_global) {
+      __syncthreads();
+    }
+    for (uint32_t k = 0; k < groups; ++k) {
+      // the group's rows: its index with bits b..b+G-1 opened for e
+      const uint32_t g = threadIdx.x + k * blockDim.x;
+      const uint32_t base = (g & ((1u << b) - 1u)) | ((g >> b) << (b + G));
+      const Offsets<G> at(base, b);
+      if (from_global) {
+        load_rows<W, G>(v, io, sh, cta_base, cta_off, base, b);
+      } else {
+        read_smem<W, G, RS>(v, sm, at);
+      }
+      if (st.kind == kFirst) {
+        first_phases<W, G>(v, st.kl, t, cta_off | base);
+      } else {
+        if (st.jx >= 0) {
+          const int jb = st.jx - r;
+          const uint32_t* remote =
+              cluster.map_shared_rank(sm, rank ^ (1u << jb));
+          const bool low = ((rank >> jb) & 1u) == 0;
+          const bool up = !(st.kl < t && ((cta_off >> st.kl) & 1u));
+          const bool keep_min = low == up;
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            const uint32_t* p = remote + at(e);
+            uint32_t a[W], o[W];
+#pragma unroll
+            for (int w = 0; w < W; ++w) {
+              a[w] = v[w][e];
+              o[w] = p[w * RS];
+            }
+            const bool take =
+                keep_min ? greater_row<W>(a, o) : greater_row<W>(o, a);
+#pragma unroll
+            for (int w = 0; w < W; ++w) v[w][e] = take ? o[w] : a[w];
+          }
+          // every read of this group's rows, here and in the partner, is
+          // done before they are written; the rows of later groups are
+          // untouched until then
+          cluster.sync();
+        }
+        if (st.jhi >= 0) {
+          const bool down =
+              st.kl < t && (((cta_off | base) >> st.kl) & 1u);
+          group_stages<W, G>(v, st.jhi - st.jlo + 1, down);
+        }
+      }
+      if (i + 1 == prog.count) {
+        store_rows<W, G>(v, io, rd, sh, cta_base, base, b);
+      } else {
+        write_smem<W, G, RS>(v, sm, at);
+      }
+    }
+  }
+}
+
+// Largest sub-tile of one word that fits 128 KB of shared memory.
+constexpr int kSubLog2One = 15;
 
 constexpr int imin(int a, int b) { return a < b ? a : b; }
 
-template <int W>
-cudaError_t sort_tiles(Words io, long long n, int tile_log2, uint32_t flip1,
-                       cudaStream_t stream) {
-  const int sub_log2 = imin(tile_log2, sub_log2_max(W));
+cudaError_t sort_tiles_one(Words io, long long n, int tile_log2,
+                           cudaStream_t stream) {
+  const int sub_log2 = imin(tile_log2, kSubLog2One);
   const int S = 1 << sub_log2;
-  const int smem = W * S * static_cast<int>(sizeof(uint32_t));
+  const int smem = S * static_cast<int>(sizeof(uint32_t));
   cudaError_t err = cudaFuncSetAttribute(
-      bitonic_local<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      bitonic_local<1>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int threads = imin(S / 2, kBlockThreads);
   const unsigned blocks = static_cast<unsigned>(n >> sub_log2);
-  bitonic_local<W><<<blocks, threads, smem, stream>>>(
-      io, tile_log2, sub_log2, 1, sub_log2, flip1);
+  bitonic_local<1><<<blocks, threads, smem, stream>>>(
+      io, tile_log2, sub_log2, 1, sub_log2, 0u);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   Words inplace = io;
-  for (int w = 0; w < W; ++w) inplace.src[w] = io.dst[w];
+  inplace.src[0] = io.dst[0];
   const long long npairs = n / 2;
   const unsigned stage_blocks =
       static_cast<unsigned>((npairs + kStageThreads - 1) / kStageThreads);
   for (int kl = sub_log2 + 1; kl <= tile_log2; ++kl) {
     for (int jl = kl - 1; jl >= sub_log2; --jl) {
-      bitonic_stage<W><<<stage_blocks, kStageThreads, 0, stream>>>(
-          inplace, npairs, tile_log2, kl, jl, flip1);
+      bitonic_stage<1><<<stage_blocks, kStageThreads, 0, stream>>>(
+          inplace, npairs, tile_log2, kl, jl, 0u);
       if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
-    bitonic_local<W><<<blocks, threads, smem, stream>>>(
-        inplace, tile_log2, sub_log2, kl, kl, flip1);
+    bitonic_local<1><<<blocks, threads, smem, stream>>>(
+        inplace, tile_log2, sub_log2, kl, kl, 0u);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// The built (words, log2 E) pairs: the threads of a full CTA, which set
+// its registers (65536 / threads), and log2 of the most rows a CTA holds,
+// the stride of a word in shared memory; 0 where the pair is not built
+// (kernels/tile_sort.py GEOMETRY names the pair each word count uses).
+constexpr int max_threads(int W, int G) {
+  return (W == 2 && G == 5) || (W == 3 && G == 4) || (W == 4 && G == 4)
+             ? 512
+             : 0;
+}
+constexpr int max_rows_log2(int W, int G) {
+  return max_threads(W, G) ? (W == 4 ? 13 : 14) : 0;
+}
+
+// Whether `code` is a schedule the kernels can run without leaving their
+// rows: fields in range, a cluster run of at most kMaxSteps steps, kFirst
+// only first in a run, the last step of the program a store of whole
+// vectors (b == 0). Whether it sorts is kernels/tile_sort.py's to show.
+bool valid_program(const int* code, int ncode, int t, int r, int span,
+                   int G, bool stored_index) {
+  if (ncode < 1 || decode(code[0]).kind == kStage) return false;
+  int run = 0;
+  for (int i = 0; i < ncode; ++i) {
+    const Step s = decode(code[i]);
+    if (s.kl < 1 || s.kl > t) return false;
+    if (s.kind == kStage) {
+      if (!stored_index || s.jx < span || s.jx >= s.kl) return false;
+      run = 0;
+      continue;
+    }
+    if (++run > kMaxSteps) return false;
+    if (s.kind == kFirst) {
+      if (i != 0 || s.kl > G || s.jx >= 0 || s.b != 0) return false;
+    } else if (s.kind == kGroup) {
+      if (s.jx >= 0 && (s.jx < r || s.jx >= span || s.jx >= s.kl))
+        return false;
+      if (s.jx < 0 && s.jhi < 0) return false;
+      if (s.jhi >= 0 && (s.jlo != s.b || s.jlo > s.jhi ||
+                         s.jhi >= s.b + G || s.jhi >= s.kl))
+        return false;
+      if (s.b + G > r) return false;
+    } else {
+      return false;
+    }
+  }
+  const Step last = decode(code[ncode - 1]);
+  return last.kind != kStage && last.b == 0;
+}
+
+template <int W, int G>
+cudaError_t launch_cluster(const Words& io, const Riders& rd,
+                           const Steps& prog, const Shape& sh, int cluster,
+                           long long n, cudaStream_t stream) {
+  constexpr int RS = 1 << max_rows_log2(W, G);
+  auto kern = cluster_sort<W, G, max_threads(W, G), RS>;
+  static_assert(W * RS * 4 <= kSmemLimit, "a CTA's words must fit");
+  const int smem = W * RS * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n >> sh.rows_log2));
+  cfg.blockDim = dim3(static_cast<unsigned>(
+      imin(max_threads(W, G), 1 << (sh.rows_log2 - G))));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, kern, io, rd, prog, sh);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Run the program: each maximal run of cluster steps is one cluster_sort
+// launch, each kStage one bitonic_stage pass in place on dst. Launches
+// after the first work in place; the riders move in the last.
+template <int W, int G>
+cudaError_t sort_cluster(const Words& io, const Riders& rd, const int* code,
+                         int ncode, const Shape& sh, int cluster, long long n,
+                         cudaStream_t stream) {
+  Words inplace = io;
+  for (int w = 0; w < W; ++w) inplace.src[w] = io.dst[w];
+  const Riders none{};
+  const long long npairs = n / 2;
+  const unsigned stage_blocks =
+      static_cast<unsigned>((npairs + kStageThreads - 1) / kStageThreads);
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < ncode;) {
+    const Step s = decode(code[i]);
+    if (s.kind == kStage) {
+      bitonic_stage<W><<<stage_blocks, kStageThreads, 0, stream>>>(
+          inplace, npairs, sh.tile_log2, s.kl, s.jx, sh.flip1);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+      ++i;
+      continue;
+    }
+    Steps prog{};
+    const int first = i;
+    while (i < ncode && decode(code[i]).kind != kStage)
+      prog.code[prog.count++] = code[i++];
+    err = launch_cluster<W, G>(first == 0 ? io : inplace, i == ncode ? rd : none,
+                            prog, sh, cluster, n, stream);
+    if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
 }  // namespace
 
-// Sort every tile of 2^tile_log2 rows of `nwords` (1..4) u32 words.
-// src[w] == nullptr makes word w the row's index in its tile. n must be a
-// multiple of the tile; 1 <= tile_log2 <= 30. Returns a cudaError_t.
+// Sort every tile of 2^tile_log2 rows of `nwords` (1..4) u32 words; n a
+// multiple of the tile, 1 <= tile_log2 <= 30. One word runs bitonic_local
+// (and bitonic_stage above 2^15 rows) and ignores the other arguments.
+// Two to four run cluster_sort: clusters of `cluster` CTAs of
+// 2^rows_log2 rows each, E = 2^G rows a thread at a time (a built pair of
+// words and G, see max_threads), by the schedule `code`
+// (kernels/tile_sort.py `tile_plan`). src[w] == nullptr makes word w the row's index in its
+// tile; dst[w] == nullptr leaves it unstored (allowed only when the
+// schedule has no device-memory stage). With nriders > 0 the last word
+// must be the index word, and rider_dst[k][row] = rider_src[k][tile_base +
+// index]. Returns a cudaError_t: a refused cluster launch (no cluster of
+// that size and shared memory fits the card) returns the occupancy
+// query's error or cudaErrorLaunchOutOfResources.
 extern "C" int lsd_sort_tiles(const void* const* src, void* const* dst,
                               int nwords, long long n, int tile_log2,
-                              unsigned int flip1, void* stream) {
+                              unsigned int flip1, int cluster, int rows_log2,
+                              int G, const int* code, int ncode,
+                              const void* const* rider_src,
+                              void* const* rider_dst, int nriders,
+                              void* stream) {
   if (nwords < 1 || nwords > kMaxWords || tile_log2 < 1 || tile_log2 > 30 ||
       n % (1LL << tile_log2) != 0) {
     return cudaErrorInvalidValue;
   }
-  if (n == 0) return cudaSuccess;
+  const auto st = static_cast<cudaStream_t>(stream);
   Words io{};
+  bool stored_index = true;
   for (int w = 0; w < nwords; ++w) {
     io.src[w] = static_cast<const uint32_t*>(src[w]);
     io.dst[w] = static_cast<uint32_t*>(dst[w]);
+    stored_index = stored_index && io.dst[w] != nullptr;
   }
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch (nwords) {
-    case 1: return sort_tiles<1>(io, n, tile_log2, flip1, st);
-    case 2: return sort_tiles<2>(io, n, tile_log2, flip1, st);
-    case 3: return sort_tiles<3>(io, n, tile_log2, flip1, st);
-    case 4: return sort_tiles<4>(io, n, tile_log2, flip1, st);
+  if (nwords == 1) {
+    if (io.src[0] == nullptr || io.dst[0] == nullptr) {
+      return cudaErrorInvalidValue;
+    }
+    return n == 0 ? cudaSuccess : sort_tiles_one(io, n, tile_log2, st);
+  }
+  const int cluster_log2 = cluster == 4 ? 2 : (cluster == 2 ? 1 : 0);
+  const int span = rows_log2 + cluster_log2;
+  if ((cluster != 1 && cluster != 2 && cluster != 4) || nriders < 0 ||
+      nriders > kMaxRiders || G < 1 || G > 5 || rows_log2 < G ||
+      rows_log2 > max_rows_log2(nwords, G) ||
+      n % (1LL << span) != 0 || (cluster > 1 && span > tile_log2) ||
+      (nriders > 0 && io.src[nwords - 1] != nullptr) ||
+      !valid_program(code, ncode, tile_log2, rows_log2, span, G,
+                     stored_index)) {
+    return cudaErrorInvalidValue;
+  }
+  if (n == 0) return cudaSuccess;
+  Riders rd{};
+  rd.count = nriders;
+  for (int k = 0; k < nriders; ++k) {
+    rd.src[k] = static_cast<const uint32_t*>(rider_src[k]);
+    rd.dst[k] = static_cast<uint32_t*>(rider_dst[k]);
+  }
+  const Shape sh{tile_log2, rows_log2, flip1};
+  switch (nwords * 8 + G) {
+#define LSD_CASE(W, G1)                                                    \
+  case W * 8 + G1:                                                         \
+    return sort_cluster<W, G1>(io, rd, code, ncode, sh, cluster, n, st);
+    LSD_CASE(2, 5)
+    LSD_CASE(3, 4)
+    LSD_CASE(4, 4)
+#undef LSD_CASE
     default: return cudaErrorInvalidValue;
   }
-}
-
-// dst[g] = src[tile_base(g) + idx[g]]: move a riding stream by the tile
-// permutation that lsd_sort_tiles left in its index word.
-extern "C" int lsd_gather_tiles(const void* src, void* dst, const void* idx,
-                                long long n, int tile_log2, void* stream) {
-  if (n == 0) return cudaSuccess;
-  const unsigned blocks =
-      static_cast<unsigned>((n + kStageThreads - 1) / kStageThreads);
-  gather_tiles<<<blocks, kStageThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(src), static_cast<uint32_t*>(dst),
-      static_cast<const uint32_t*>(idx), n, tile_log2);
-  return cudaGetLastError();
 }
 
 extern "C" const char* lsd_error_string(int err) {

@@ -25,6 +25,7 @@ knobs, in the JAX package's argument order: accepted and ignored.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -101,35 +102,203 @@ def sort_tiles_multi_plain(keys, values, tile_rows: int = 128,
 
 # --- CUDA kernels -----------------------------------------------------------
 
-def _launch(words, riders, tile_log2: int, flip1: bool):
+# cluster_sort's geometry a word count (2..4): log2 of the most rows a CTA
+# holds (all its words in shared memory: 128, 192 and 128 KB), log2 of the
+# rows E a thread holds in registers, and the threads of a full CTA (512,
+# so up to 128 registers a thread); a thread takes its CTA's rows E at a
+# time, 2^rows / (E * threads) groups a step.
+GEOMETRY = {2: (14, 5, 512), 3: (14, 4, 512), 4: (13, 4, 512)}
+MAX_CLUSTER = 4
+SMEM_LIMIT = 232_448      # bytes of shared memory a block may use
+MAX_RIDERS = 16           # riders one launch gathers (csrc kMaxRiders)
+MAX_STEPS = 64            # steps of one cluster launch (csrc kMaxSteps)
+STAGE, FIRST, GROUP = 0, 1, 2
+
+# CUDA kernel launches of the tile sorts, by kernel (a wrapper call counts
+# one in LAUNCHES and its kernels' launches here)
+KERNEL_LAUNCHES = {"bitonic_local": 0, "bitonic_stage": 0, "cluster_sort": 0}
+
+
+class Step(NamedTuple):
+    """One step of a tile sort's schedule.
+
+    STAGE: the device-memory stage (kl, jl = jx), one pass over the words.
+    FIRST: phases 1..kl in registers, each thread on E consecutive rows,
+    straight from the load. GROUP: the cross-CTA stage (kl, jx) if jx >= 0,
+    then the stages jhi..jlo of phase kl (if jhi >= 0) in registers, each
+    thread on the E rows that differ only in bits b..b+G-1."""
+    kind: int
+    kl: int
+    jx: int = -1
+    jhi: int = -1
+    jlo: int = -1
+    b: int = 0
+
+    @property
+    def code(self) -> int:
+        """The int32 csrc/tile_sort.cu `decode` reads."""
+        return (self.kind | self.kl << 2 | (self.jx + 1) << 7
+                | (self.jhi + 1) << 12 | (self.jlo + 1) << 17 | self.b << 22)
+
+    def stages(self) -> list[tuple[int, int]]:
+        """The (kl, jl) stages of the network this step runs, in order."""
+        if self.kind == STAGE:
+            return [(self.kl, self.jx)]
+        if self.kind == FIRST:
+            return [(k, j) for k in range(1, self.kl + 1)
+                    for j in range(k - 1, -1, -1)]
+        out = [(self.kl, self.jx)] if self.jx >= 0 else []
+        if self.jhi >= 0:
+            out += [(self.kl, j) for j in range(self.jhi, self.jlo - 1, -1)]
+        return out
+
+
+class TilePlan(NamedTuple):
+    """How csrc/tile_sort.cu `cluster_sort` sorts tiles of `nwords` words:
+    clusters of `cluster` CTAs of 2^rows_log2 rows (span 2^span_log2 rows),
+    `threads` a CTA, E = 2^group_log2 rows a thread, `smem_bytes` of
+    shared memory a CTA, and the schedule `steps`."""
+    nwords: int
+    tile_log2: int
+    cluster: int
+    rows_log2: int
+    group_log2: int
+    threads: int
+    smem_bytes: int
+    span_log2: int
+    steps: tuple
+
+    def launches(self) -> dict:
+        """Kernel launches of one call: a cluster_sort a run of steps
+        between device-memory stages, a bitonic_stage each of those."""
+        stages = sum(s.kind == STAGE for s in self.steps)
+        runs = sum(s.kind != STAGE and (i == 0 or self.steps[i - 1].kind
+                                         == STAGE)
+                   for i, s in enumerate(self.steps))
+        return {"bitonic_local": 0, "bitonic_stage": stages,
+                "cluster_sort": runs}
+
+
+def _schedule(t: int, r: int, s: int, g: int) -> list[Step]:
+    """The steps of a tile of 2^t rows: clusters of span 2^s rows, CTAs of
+    2^r rows, register groups of 2^g rows."""
+    steps = []
+
+    def cluster_run(k_begin, k_end):
+        kl = k_begin
+        if kl == 1:
+            steps.append(Step(FIRST, min(g, k_end)))
+            kl = min(g, k_end) + 1
+        for kl in range(kl, k_end + 1):
+            j = min(kl, s) - 1
+            while j >= 0:
+                jx = -1
+                if j >= r:                 # a cross-CTA stage
+                    if j - 1 >= r:         # another follows: on its own,
+                        # over the CTA's top bits so that a warp reads 32
+                        # neighbouring rows of the partner
+                        steps.append(Step(GROUP, kl, jx=j, b=r - g))
+                        j -= 1
+                        continue
+                    jx, j = j, j - 1       # joins the first register group
+                lo = max(j - g + 1, 0)
+                steps.append(Step(GROUP, kl, jx, j, lo, lo))
+                j = lo - 1
+
+    cluster_run(1, min(t, s))
+    for kl in range(s + 1, t + 1):
+        steps += [Step(STAGE, kl, jl) for jl in range(kl - 1, s - 1, -1)]
+        cluster_run(kl, kl)
+    return steps
+
+
+def tile_plan(nwords: int, tile_log2: int, n: int = 0) -> TilePlan:
+    """The launch plan of `cluster_sort` for tiles of 2^tile_log2 rows of
+    `nwords` (2..4) words over n rows (a multiple of the tile; 0: one
+    tile). A tile above a CTA's rows takes a cluster of up to MAX_CLUSTER
+    CTAs; a smaller one shares a CTA with its neighbours as far as n
+    allows."""
+    if nwords not in GEOMETRY:
+        raise ValueError(f"cluster_sort sorts 2..4 words, not {nwords}")
+    rmax, g, threads = GEOMETRY[nwords]
+    if tile_log2 <= rmax:
+        cluster = 1
+        low = (n & -n).bit_length() - 1 if n else tile_log2
+        rows_log2 = min(rmax, max(low, tile_log2))
+    else:
+        cluster = min(MAX_CLUSTER, 1 << (tile_log2 - rmax))
+        rows_log2 = rmax
+    if rows_log2 < g:
+        raise ValueError(f"tiles of 2^{tile_log2} rows: fewer than 2^{g} "
+                         "rows a CTA")
+    span = rows_log2 + cluster.bit_length() - 1
+    return TilePlan(nwords, tile_log2, cluster, rows_log2, g,
+                    min(threads, 1 << (rows_log2 - g)), 4 * nwords << rmax,
+                    span,
+                    tuple(_schedule(tile_log2, rows_log2, span, g)))
+
+
+def _sort_words(words, riders, tile_log2: int, flip1: bool):
     """Sort the tiles of `words` (u32 streams, the key first; None for the
-    row-index word) with csrc/tile_sort.cu, then gather the riders by the
-    index word. Returns the sorted words (index word dropped) and riders."""
+    row-index word, last, when riders ride) with csrc/tile_sort.cu: one
+    word through bitonic_local, 2..4 through cluster_sort, which gathers
+    the riders by the index word. Returns the sorted words (index word
+    dropped) and riders."""
     key = words[0]
     n = key.shape[0]
-    dst = [torch.empty_like(key) for _ in words]
     stream = ctypes.c_void_p(torch.cuda.current_stream(key.device).cuda_stream)
     with torch.cuda.device(key.device):
         sort = _build.function("lsd_sort_tiles", [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_void_p])
-        _build.check(sort(_build.pointers(words), _build.pointers(dst),
-                          len(words), n, tile_log2, _SIGN if flip1 else 0,
-                          stream), "lsd_sort_tiles")
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+        if len(words) == 1:
+            dst = [torch.empty_like(key)]
+            _build.check(sort(_build.pointers(words), _build.pointers(dst),
+                              1, n, tile_log2, 0, 1, 0, 0, None, 0, None,
+                              None, 0, stream), "lsd_sort_tiles")
+            _count(_one_word_launches(tile_log2))
+            return dst, []
+        plan = tile_plan(len(words), tile_log2, n)
+        code = (ctypes.c_int * len(plan.steps))(*[s.code for s in plan.steps])
+        # the index word reaches device memory only for the stages above
+        # the cluster's span; each batch of riders past the first sorts
+        # again and keeps only its riders
+        stored = any(s.kind == STAGE for s in plan.steps)
+        batches = [riders[i:i + MAX_RIDERS]
+                   for i in range(0, len(riders), MAX_RIDERS)] or [[]]
         out_r = []
-        if riders:
-            gather = _build.function("lsd_gather_tiles", [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-            for r in riders:
-                o = torch.empty_like(r)
-                _build.check(gather(r.data_ptr(), o.data_ptr(),
-                                    dst[-1].data_ptr(), n, tile_log2, stream),
-                             "lsd_gather_tiles")
-                out_r.append(o)
-    if riders:
-        dst = dst[:-1]
-    return dst, out_r
+        for i, batch in enumerate(batches):
+            dst = [torch.empty_like(key)
+                   if stored or (i == 0 and w is not None) else None
+                   for w in words]
+            outs = [torch.empty_like(r) for r in batch]
+            _build.check(sort(
+                _build.pointers(words), _build.pointers(dst), len(words), n,
+                tile_log2, _SIGN if flip1 else 0, plan.cluster,
+                plan.rows_log2, plan.group_log2, code, len(code),
+                _build.pointers(batch), _build.pointers(outs), len(batch),
+                stream), "lsd_sort_tiles")
+            _count(plan.launches())
+            if i == 0:
+                out_w = dst[:-1] if words[-1] is None else dst
+            out_r += outs
+    return out_w, out_r
+
+
+def _count(launches: dict) -> None:
+    for k, v in launches.items():
+        KERNEL_LAUNCHES[k] += v
+
+
+def _one_word_launches(tile_log2: int) -> dict:
+    """Kernel launches of one keys-only call: bitonic_local over sub-tiles
+    of 2^15 rows, then for each phase above them its device-memory stages
+    and a bitonic_local finishing the rest."""
+    high = max(tile_log2 - 15, 0)
+    return {"bitonic_local": 1 + high,
+            "bitonic_stage": high * (high + 1) // 2, "cluster_sort": 0}
 
 
 def sort_tiles(keys: torch.Tensor, tile_rows: int = 128,
@@ -139,7 +308,7 @@ def sort_tiles(keys: torch.Tensor, tile_rows: int = 128,
     if keys.device.type == "cpu":
         return sort_tiles_plain(keys, tile_rows)
     tile_log2 = _check_tiles(keys, (), tile_rows)
-    (ok,), _ = _launch([keys], [], tile_log2, flip1=False)
+    (ok,), _ = _sort_words([keys], [], tile_log2, flip1=False)
     LAUNCHES["sort_tiles"] += 1
     return ok
 
@@ -154,7 +323,7 @@ def sort_tiles_kv(keys: torch.Tensor, values: torch.Tensor,
     if keys.device.type == "cpu":
         return sort_tiles_kv_plain(keys, values, tile_rows)
     tile_log2 = _check_tiles(keys, (values,), tile_rows)
-    (ok, ov), _ = _launch([keys, values], [], tile_log2, flip1=True)
+    (ok, ov), _ = _sort_words([keys, values], [], tile_log2, flip1=True)
     LAUNCHES["sort_tiles_kv"] += 1
     return ok, ov
 
@@ -175,6 +344,6 @@ def sort_tiles_multi(keys: torch.Tensor, values, tile_rows: int = 128,
     ncmp = _ncmp(values, ncmp)
     compared, riders = values[:ncmp - 1], values[ncmp - 1:]
     words = [keys, *compared] + ([None] if riders else [])
-    out, out_r = _launch(words, riders, tile_log2, flip1=False)
+    out, out_r = _sort_words(words, riders, tile_log2, flip1=False)
     LAUNCHES["sort_tiles_multi"] += 1
     return out[0], [*out[1:], *out_r]

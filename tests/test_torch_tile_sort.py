@@ -148,11 +148,13 @@ def test_sort_tiles_multi_tied_compare_pair_multiset():
 def test_cpu_wrappers_run_plain_versions_only():
     k = from_numpy(np.arange(1024, dtype=np.uint32)[::-1].copy())
     launches = dict(T.LAUNCHES)
+    kernels = dict(T.KERNEL_LAUNCHES)
     plain = dict(T.PLAIN_CALLS)
     T.sort_tiles(k, tile_rows=8)
     T.sort_tiles_kv(k, k, tile_rows=8)
     T.sort_tiles_multi(k, [k, k], tile_rows=8)
     assert T.LAUNCHES == launches
+    assert T.KERNEL_LAUNCHES == kernels
     assert {n: T.PLAIN_CALLS[n] - plain[n] for n in plain} == {
         "sort_tiles": 1, "sort_tiles_kv": 1, "sort_tiles_multi": 1}
 
@@ -172,3 +174,185 @@ def test_invalid_inputs_raise():
         T.sort_tiles_multi(k, [k], tile_rows=8, ncmp=3)  # 2 streams
     with pytest.raises(ValueError):
         T.sort_tiles_multi(k, [], tile_rows=8, ncmp=2)
+
+
+# --- the cluster kernel's launch plan (kernels/tile_sort.py `tile_plan`) ----
+#
+# csrc/tile_sort.cu `cluster_sort` runs the schedule the plan hands it, step
+# by step; the replay below runs the same steps on numpy rows, as the
+# kernel does, and checks the plan's promises.
+
+def _packed(words):
+    """Rows of small words (< 8) and a last u32 as one uint64 that orders
+    as the words do lexicographically."""
+    key = np.zeros(len(words[0]), np.uint64)
+    for w in words[:-1]:
+        assert w.max() < 8
+        key = key << np.uint64(3) | w.astype(np.uint64)
+    return key << np.uint64(32) | words[-1].astype(np.uint64)
+
+
+def _thread_rows(plan, b):
+    """The rows of each group a thread holds at a step over bits
+    b..b+G-1, for every group of a CTA."""
+    g = plan.group_log2
+    tid = np.arange(1 << (plan.rows_log2 - g))[:, None]
+    e = np.arange(1 << g)[None, :]
+    return (tid & ((1 << b) - 1)) | (e << b) | ((tid >> b) << (b + g))
+
+
+def _replay(plan, key):
+    """Run plan.steps over numpy rows (one uint64 key a row, tiles of
+    2^tile_log2 rows) as the kernels do; return the sorted keys and the
+    (kl, jl, where) of each stage run."""
+    t, g, r = plan.tile_log2, plan.group_log2, plan.rows_log2
+    key = key.copy()
+    n = len(key)
+    # bit kl of each row's index in its tile: the direction of phase kl
+    local = np.arange(n) & ((1 << t) - 1)
+    desc = {kl: (local >> kl) & 1 == 1 for kl in range(1, t)}
+    closed = set()
+    run = []
+    for st in plan.steps:
+        for kl, jl in st.stages():
+            if st.kind == T.STAGE:
+                where = "device"
+            elif st.kind == T.GROUP and jl == st.jx:
+                where = "cross"
+            else:
+                where = "registers"
+                bits = 0 if st.kind == T.FIRST else st.b
+                if (bits, jl) not in closed:
+                    # the thread's rows are closed under the partner map
+                    # and lie in one CTA
+                    rows = _thread_rows(plan, bits)
+                    assert rows.max() < 1 << r
+                    np.testing.assert_array_equal(
+                        np.sort(rows ^ (1 << jl), axis=1),
+                        np.sort(rows, axis=1))
+                    closed.add((bits, jl))
+                # away from the first step, one direction a thread
+                if st.kind == T.GROUP:
+                    assert not bits <= kl < bits + g
+            run.append((kl, jl, where))
+            # pairs (row, row + 2^jl) of rows with bit jl clear, as views
+            # (rows equal as keys are equal rows: which one moves is moot)
+            pairs = key.reshape(-1, 2, 1 << jl)
+            lo, hi = pairs[:, 0], pairs[:, 1]
+            small, large = np.minimum(lo, hi), np.maximum(lo, hi)
+            if kl < t:
+                down = desc[kl].reshape(-1, 2, 1 << jl)[:, 0]
+                small, large = (np.where(down, large, small),
+                                np.where(down, small, large))
+            lo[...], hi[...] = small, large
+    return key, run
+
+
+@pytest.mark.parametrize("tile_log2", range(7, 19))
+@pytest.mark.parametrize("nwords", [2, 3, 4])
+def test_tile_plan(nwords, tile_log2):
+    t = tile_log2
+    n = 1 << max(t, 15)          # several tiles a CTA below 2^15 rows
+    plan = T.tile_plan(nwords, t, n)
+    r, s = plan.rows_log2, plan.span_log2
+    assert 4 * nwords << r <= plan.smem_bytes <= T.SMEM_LIMIT
+    assert plan.cluster in (1, 2, 4)
+    assert s == r + plan.cluster.bit_length() - 1
+    groups = 1 << (r - plan.group_log2)
+    assert plan.threads <= 1024 and groups % plan.threads == 0
+    assert n % (1 << s) == 0 and (plan.cluster == 1 or s <= t)
+    if t >= 15:
+        # the paths' tile fits one cluster: 2^15 / C rows of every word
+        # in each CTA
+        assert (nwords * 4 << 15) // plan.cluster <= plan.smem_bytes
+    rng = np.random.default_rng(t * 8 + nwords)
+    random = [rng.integers(0, 3, n, dtype=np.uint32) for _ in range(nwords)]
+    random[-1] = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(
+        np.uint32)
+    equal = [np.full(n, 7, np.uint32) for _ in range(nwords)]
+    for words in (random, equal):
+        got, run = _replay(plan, _packed(words))
+        network = [(kl, jl) for kl in range(1, t + 1)
+                   for jl in range(kl - 1, -1, -1)]
+        assert [(kl, jl) for kl, jl, _ in run] == network
+        assert {(kl, jl) for kl, jl, w in run if w == "cross"} == {
+            (kl, jl) for kl, jl in network if 1 << r <= 1 << jl < 1 << s}
+        assert {(kl, jl) for kl, jl, w in run if w == "device"} == {
+            (kl, jl) for kl, jl in network if 1 << jl >= 1 << s}
+        if t == 15:
+            assert all(w != "device" for _, _, w in run)
+        for tile in range(n >> t):
+            sl = slice(tile << t, (tile + 1) << t)
+            order = np.lexsort([w[sl] for w in reversed(words)])
+            np.testing.assert_array_equal(got[sl], _packed(words)[sl][order])
+    # one cluster launch a call where the tile fits the cluster
+    assert plan.launches()["cluster_sort"] == 1 + max(t - s, 0)
+    assert plan.launches()["bitonic_stage"] == sum(
+        kl - s for kl in range(s + 1, t + 1))
+    assert all(0 <= st.code < 1 << 27 for st in plan.steps)
+    runs = "".join("|" if st.kind == T.STAGE else "s" for st in plan.steps)
+    assert max(len(run) for run in runs.split("|")) <= T.MAX_STEPS
+
+
+# --- the paths' 2^15-row tile, as one cluster sorts it ----------------------
+
+CLUSTER_ROWS = 256        # tile_rows of the paths' 2^15-row tile
+
+
+@pytest.fixture(scope="module")
+def cluster_tile():
+    """One 2^15-row tile whose keys tie across the half- and quarter-tile
+    boundaries (rows i, i + 2^13, i + 2^14 and i + 3 * 2^13 share a key:
+    the pairs the cross-CTA stages compare), with vals across 2^31."""
+    rng = np.random.default_rng(23)
+    n = CLUSTER_ROWS * 128
+    keys = np.tile(rng.integers(0, 5, n // 4, dtype=np.uint32), 4)
+    vals = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    vals[:4] = [0x7FFFFFFF, 0x80000000, 0, 0xFFFFFFFF]
+    # a compared word of few values on both sides of 2^31
+    v0 = rng.integers(0x7FFFFFFE, 0x80000002, n, dtype=np.uint64).astype(
+        np.uint32)
+    return keys, vals, v0
+
+
+def test_sort_tiles_kv_cluster_tile_matches_jax(cluster_tile):
+    keys, vals, _ = cluster_tile
+    want = _np(J.sort_tiles_kv(jnp.asarray(keys), jnp.asarray(vals),
+                               tile_rows=CLUSTER_ROWS))
+    got = _port(T.sort_tiles_kv(from_numpy(keys), from_numpy(vals),
+                                tile_rows=CLUSTER_ROWS))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_sort_tiles_multi_cluster_tile_rider_matches_jax(cluster_tile):
+    # ncmp = 2 with a rider: (key, v0) compared, with ties; vals ride
+    keys, vals, v0 = cluster_tile
+    wk, (w0, w1) = J.sort_tiles_multi(
+        jnp.asarray(keys), [jnp.asarray(v0), jnp.asarray(vals)],
+        tile_rows=CLUSTER_ROWS)
+    wk, w0, w1 = np.asarray(wk), np.asarray(w0), np.asarray(w1)
+    gk, (g0, g1) = T.sort_tiles_multi(
+        from_numpy(keys), [from_numpy(v0), from_numpy(vals)],
+        tile_rows=CLUSTER_ROWS)
+    gk, g0, g1 = to_numpy(gk), to_numpy(g0), to_numpy(g1)
+    np.testing.assert_array_equal(gk, wk)
+    np.testing.assert_array_equal(g0, w0)
+    # riders: the same multiset a tie group, and stable in the port
+    assert collections.Counter(zip(gk.tolist(), g0.tolist(), g1.tolist())) \
+        == collections.Counter(zip(wk.tolist(), w0.tolist(), w1.tolist()))
+    np.testing.assert_array_equal(g1, vals[np.lexsort((v0, keys))])
+
+
+def test_sort_tiles_multi_cluster_tile_ncmp3_matches_jax(cluster_tile):
+    # ncmp = 3, the 64-bit chain's (hi, lo, position)
+    keys, _, v0 = cluster_tile
+    pos = np.arange(len(keys), dtype=np.uint32)
+    wk, wv = J.sort_tiles_multi(jnp.asarray(keys),
+                                [jnp.asarray(v0), jnp.asarray(pos)],
+                                tile_rows=CLUSTER_ROWS, ncmp=3)
+    gk, gv = T.sort_tiles_multi(from_numpy(keys),
+                                [from_numpy(v0), from_numpy(pos)],
+                                tile_rows=CLUSTER_ROWS, ncmp=3)
+    for g, w in zip(_port([gk, *gv]), _np([wk, *wv])):
+        np.testing.assert_array_equal(g, w)
