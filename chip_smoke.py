@@ -8,9 +8,13 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. Device: the card's name, its power limit (nvidia-smi), the build of
    the port's CUDA kernels from the sources in this checkout (with the
    registers and spills of each cluster_sort build, and the cluster size
-   C and rows a thread E of each word count's 2^15-row tile), and the
-   card's copy ceiling (core/roofline.py `measure_copy_gbps`), the
-   denominator of every bound below.
+   C and rows a thread E of each word count's 2^15-row tile, 1 to 4
+   words), and the card's copy and read ceilings (core/roofline.py
+   `measure_copy_gbps`, `measure_read_gbps`), the denominators of every
+   bound below: a bound is the bytes a kernel must move over the copy
+   ceiling, except the bytes it reads beyond those it writes (a
+   histogram's keys, a compaction's mask), which go over the read
+   ceiling.
 2. Each kernel against its plain PyTorch version on the card, bit for
    bit, on uniform, all-equal, presorted, reversed, 97-distinct,
    {0, 0xFFFFFFFF} and "cluster boundary" keys (rows i, i + 2^13, i + 2^14
@@ -21,9 +25,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    of sort_tiles_kv (also on the boundary keys); the tile sort and merge
    passes at ncmp = 3 (hi, lo, position), with and without a rider (the
    tile sort's 3 and 4 words); one cluster_sort launch a tile-sort call
-   of 2..4 words at the 2^15-row tile, one bitonic_local of 1, and no
-   bitonic_stage; the kv and 3-word tile sorts at tiles of 2^18 rows,
-   their stages above the cluster's span as bitonic_stage passes; merge_pass_runs and its range
+   of 1..4 words at the 2^15-row tile, and no bitonic_stage; keys alone
+   at every family at tiles of 2^18 rows (launches as `tile_plan` says)
+   and of the bench CLI's sweep, 2^11-2^16 rows; the kv and 3-word tile
+   sorts at tiles of 2^18 rows, their stages above the cluster's span as
+   bitonic_stage passes; merge_pass_runs and its range
    partition (merge_runs_splits) on every range of merge_runs_chunked
    (trimmed buffers) of each family cut into S = 8, 4, 2 sorted runs at
    nranges = 1, 2, 4, of the skewed layout of tests/test_bigsort.py:64-83
@@ -33,9 +39,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    (kernels/merge.py `window_table`): all-equal, few-unique and uniform
    keys, S = 2, 3, 8 runs of unequal lengths (one shorter than a tile),
    1, 2, 3 and 8 streams at ncmp 1-3, ranges that start mid-window and
-   hold no whole number of tiles; digit histograms at (r, group) in (1,0), (2,5),
-   (4,3), (8,0), (8,3) and blocks 128, 1024, 2^13, 2^17, and
-   digit_histogram; the device-memory histogram at r = 13 and 16.
+   hold no whole number of tiles; digit histograms at (r, group) in
+   (1,0), (2,5), (4,3), (4,0), (5,1), (8,0), (8,3), (9,1), (12,2) (each
+   way of keeping the counters and its edges) and blocks 128, 512, 1024,
+   2^13, 27648 and 2^17 (in parts), at blocks 512 and 2^13 also offset by
+   one word, and digit_histogram; the device-memory histogram at r = 13
+   and 16.
    The merge-path partition (merge_path_splits) and merge against their
    plain versions on all-equal, 97-distinct and uniform keys, with 1, 2,
    3 and 8 streams at every ncmp they allow, runs of 2^15, 1000 and 3
@@ -115,8 +124,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    is its one caller), and no plain version ran; merge_pass_runs
    launched exactly once a range (2 a chunked sort), the hierarchical
    scan exactly 7 times in the runner; on every path one cluster_sort a
-   sort_tiles_kv or sort_tiles_multi call, one bitonic_local a
-   sort_tiles call, and no bitonic_stage. shuffle_elem_runs has
+   tile-sort call (sort_tiles, sort_tiles_kv or sort_tiles_multi), and no
+   bitonic_stage. shuffle_elem_runs has
    no caller on any path, in either package: its launches are 0. Then one
    composed sort at each r = 1, 2, 4, 8 launches block_prefix_sums and
    transpose_tiled 32 / r times each, with no plain call.
@@ -131,7 +140,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    2^30 chunked pass (2 streams, untrimmed runs), its partition timed on
    its own beside it, beside a stable torch.sort of the 2^30 int64 (key,
    position) words; the histogram of
-   2^27 keys at each r, and of 2^27 all-equal keys at r = 8 and 1;
+   2^27 keys at each r, and of 2^27 all-equal keys at each r;
    exclusive_scan of each r's digit-major histogram (beside
    torch.cumsum) and of 2^27 words; block_prefix_sums of each r's
    histogram rows and transpose_tiled of each r's histogram, each timed
@@ -157,7 +166,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    strategy, the composed sort at each r and kv at r = 8 (2^27), and at
    2^30 the composed r = 4 sort beside merge_sort_keys, the scan and the
    r = 1 and r = 8 histograms beside the reference's RTX 3060 Ti numbers
-   (BASELINE.md).
+   (BASELINE.md), and the flagship's r = 4, block 512 histogram, checked
+   bit for bit against its plain version.
 
 Each phase prints its seconds. The line before the last is a JSON object
 with one entry per kernel; the last line is {"ok": true, "device":
@@ -249,7 +259,7 @@ def main() -> int:
             props = [x.split(":", 1)[-1].strip() for x in log[i + 1:i + 4]
                      if "Used" in x or "spill" in x]
             print(f"cluster_sort<{tmpl}>: {'; '.join(props)}")
-    for w in (2, 3, 4):
+    for w in (1, 2, 3, 4):
         p = TS.tile_plan(w, 15, 1 << 27)
         print(f"cluster_sort {w} words, 2^15-row tile: C={p.cluster} CTAs "
               f"of 2^{p.rows_log2} rows, E={1 << p.group_log2} rows a "
@@ -260,9 +270,16 @@ def main() -> int:
     print(f"copy ceiling: {ceiling:.1f} GB/s (dst.copy_(src) of 1 GiB, read "
           f"+ write bytes, median of 5; spec {roof.spec_gbps:.0f} GB/s, "
           f"recorded {roof.hbm_gbps:.1f} GB/s; {card})")
+    read_ceiling, read_rates = roofline.measure_read_gbps(dev)
+    rates = ", ".join(f"{k} {v:.1f}" for k, v in read_rates.items())
+    print(f"read ceiling: {read_ceiling:.1f} GB/s ({rates} GB/s; "
+          f"2^27 int32 words read once, median of 5; {card})")
 
-    def bound_ms(nbytes):
-        return nbytes / (ceiling * 1e9) * 1e3
+    def bound_ms(nbytes, reads=0):
+        """Least ms to move nbytes, of which `reads` are read with no
+        write to pair with (at the read ceiling; the rest, reads and
+        writes together, at the copy ceiling)."""
+        return ((nbytes - reads) / ceiling + reads / read_ceiling) / 1e6
 
     phase_done(1)
 
@@ -381,10 +398,10 @@ def main() -> int:
                                                         ncmp=3)),
                         key_and_list(M.merge_pass_multi_plain(
                             k3, v3, 1 << run_log2, ncmp=3)))
-    # one cluster_sort launch a call of 2..4 words at the 2^15-row tile
-    # (no bitonic_stage, no gather), bitonic_local for keys alone; then
-    # tiles of 2^18 rows, whose stages above the cluster's span run as
-    # bitonic_stage passes between cluster_sort launches
+    # one cluster_sort launch a call of 1..4 words at the 2^15-row tile
+    # (no bitonic_stage, no gather); then tiles of 2^18 rows, whose stages
+    # above the cluster's span run as bitonic_stage passes between
+    # cluster_sort launches
     x = families(n2, 7)["cluster_boundary"]
     calls = {
         "sort_tiles": (lambda: one(TS.sort_tiles(x, tile_rows)), 1),
@@ -401,15 +418,26 @@ def main() -> int:
         before = dict(TS.KERNEL_LAUNCHES)
         call()
         got = {k: v - before[k] for k, v in TS.KERNEL_LAUNCHES.items()}
-        want_l = ({"bitonic_local": 1, "bitonic_stage": 0, "cluster_sort": 0}
-                  if words == 1 else
-                  {"bitonic_local": 0, "bitonic_stage": 0, "cluster_sort": 1})
+        want_l = {"bitonic_stage": 0, "cluster_sort": 1}
         print(f"phase 2: {what} ({words} words) at the 2^15-row tile: "
               f"kernel launches {got}")
         if got != want_l:
             raise AssertionError(f"{what}: launches {got}, not {want_l}")
     big_rows = (1 << 18) // TS.LANES
     for fam, x in families(n2, 8).items():
+        # keys alone at every family: the tile of 2^18 rows (C = 4 CTAs of
+        # 2^15, its stage of distance 2^17 a device-memory pass) and the
+        # bench CLI's sweep tiles of 2^11..2^16 rows (several tiles a CTA
+        # below 2^15, C = 2 at 2^16)
+        for t in (18, 11, 12, 13, 14, 16):
+            before = dict(TS.KERNEL_LAUNCHES)
+            compare("sort_tiles", f"{fam} tile=2^{t}",
+                    one(TS.sort_tiles(x, (1 << t) // TS.LANES)),
+                    one(TS.sort_tiles_plain(x, (1 << t) // TS.LANES)))
+            got = {k: v - before[k] for k, v in TS.KERNEL_LAUNCHES.items()}
+            if got != TS.tile_plan(1, t, n2).launches():
+                raise AssertionError(f"sort_tiles tile 2^{t}: launches "
+                                     f"{got}")
         if fam not in ("uniform", "distinct97", "cluster_boundary"):
             continue
         before = dict(TS.KERNEL_LAUNCHES)
@@ -425,9 +453,10 @@ def main() -> int:
                          for w in (2, 3)) for k in got}
         if got != want_l:
             raise AssertionError(f"tile 2^18: launches {got}, not {want_l}")
-    print(f"phase 2: tiles of 2^18 rows, 2 and 3 words: bit exact; kernel "
-          f"launches {got} a family (the stages above the cluster's span "
-          f"as bitonic_stage passes)")
+    print(f"phase 2: keys alone at tiles of 2^11-2^16 and 2^18 rows, every "
+          f"family, and tiles of 2^18 rows of 2 and 3 words: bit exact; "
+          f"kernel launches {got} a family at 2 and 3 words (the stages "
+          f"above the cluster's span as bitonic_stage passes)")
     del lo3
     # the merge-path merge's edges: all-equal keys, few uniques and
     # uniform keys; 1, 2, 3 and 8 streams at every ncmp they allow; runs of
@@ -590,14 +619,25 @@ def main() -> int:
           f"every range of merge_runs_chunked and on windowed ranges "
           f"(max_abs_err {max_err['merge_pass_runs']}, "
           f"{max_err['merge_path_splits']})")
-    # digit histograms, each family at every (r, group) and block
+    # digit histograms, each family at every (r, group) and block (the
+    # counters a column a lane at r <= 4, a copy a warp to r = 8, a copy
+    # a CTA to r = 12; blocks above UNIT_KEYS in parts), the keys aligned
+    # and offset by one word (no 16-byte loads)
     for fam, x in families(n2, 1).items():
-        for r, group in ((1, 0), (2, 5), (4, 3), (8, 0), (8, 3)):
-            for blk in (128, 1024, 1 << 13, 1 << 17):
-                compare("block_digit_histograms",
-                        f"{fam} r={r} group={group} block={blk}",
-                        [H.block_digit_histograms(x, r, group, blk)],
-                        [H.block_digit_histograms_plain(x, r, group, blk)])
+        xi = x.view(torch.int32)
+        xo = torch.cat([xi[:1], xi])[1:].view(torch.uint32)
+        for r, group in ((1, 0), (2, 5), (4, 3), (4, 0), (5, 1), (8, 0),
+                         (8, 3), (9, 1), (12, 2)):
+            for blk in (128, 512, 1024, 1 << 13, 3 * 1024 * 9, 1 << 17):
+                for what, xx in (("", x), (" offset 1 word", xo)):
+                    if what and blk not in (512, 1 << 13):
+                        continue
+                    xx = xx[:n2 // blk * blk]
+                    compare("block_digit_histograms",
+                            f"{fam} r={r} group={group} block={blk}{what}",
+                            [H.block_digit_histograms(xx, r, group, blk)],
+                            [H.block_digit_histograms_plain(xx, r, group,
+                                                            blk)])
         compare("block_digit_histograms", f"{fam} digit_histogram r=8 g=2",
                 [H.digit_histogram(x, 8, 2)],
                 [H.block_digit_histograms_plain(x, 8, 2, n2)])
@@ -1064,7 +1104,7 @@ def main() -> int:
 
     def read_counts():
         """Launches by wrapper, with the tile sorts' launches by kernel
-        (bitonic_local, bitonic_stage, cluster_sort), and plain calls."""
+        (bitonic_stage, cluster_sort), and plain calls."""
         return ({k: v for mod in modules for k, v in mod.LAUNCHES.items()}
                 | TS.KERNEL_LAUNCHES,
                 {k: v for mod in modules for k, v in mod.PLAIN_CALLS.items()})
@@ -1261,10 +1301,11 @@ def main() -> int:
         if idle:
             raise AssertionError(f"{pname}: kernels never launched on the "
                                  f"path: {idle}")
-        # the paths' tiles fit a cluster: one cluster_sort a call of 2..4
-        # words, one bitonic_local a keys-only call, no bitonic_stage
-        tiles = {"bitonic_local": lc["sort_tiles"], "bitonic_stage": 0,
-                 "cluster_sort": lc["sort_tiles_kv"] + lc["sort_tiles_multi"]}
+        # the paths' tiles fit a cluster: one cluster_sort a call of 1..4
+        # words, no bitonic_stage
+        tiles = {"bitonic_stage": 0,
+                 "cluster_sort": lc["sort_tiles"] + lc["sort_tiles_kv"]
+                 + lc["sort_tiles_multi"]}
         if any(lc[k] != v for k, v in tiles.items()):
             raise AssertionError(f"{pname}: tile sort kernel launches "
                                  f"{ {k: lc[k] for k in tiles} }, not "
@@ -1333,17 +1374,18 @@ def main() -> int:
     # 2^18, 2^21, 2^24), each fed the kernel's previous output; checked bit
     # for bit, then both timed on the same inputs. The first call of each
     # kernel fills its row of the kernels line: ms, plain ms, the bound
-    # (its bytes over the copy ceiling) and the library call's ms.
+    # (bound_ms of its bytes) and the library call's ms.
     iota = iota_u32(n, dev)
     pay = random_keys(n, 2, dev)
     rows = {}
     timed = {}     # kernel -> [(cuda ms, plain ms)] of every timed call
 
     def check_and_time(kname, what, fn, plain_fn, args, nbytes, split,
-                       library=None, elems=n, defined=None):
+                       library=None, elems=n, defined=None, reads=0):
         """split: the output as its list of streams (one, list or
         key_and_list); defined: compare only that many first rows of each
-        output (a compaction's defined prefix)."""
+        output (a compaction's defined prefix); reads: the bytes of nbytes
+        read beyond those written (bound_ms)."""
         got = split(fn(*args))
         compare(kname, f"{what} n={elems}", [g[:defined] for g in got],
                 [w[:defined] for w in split(plain_fn(*args))])
@@ -1354,9 +1396,11 @@ def main() -> int:
         lib = f", library {tl.ms:.3f} ms" if tl is not None else ""
         print(f"kernel {kname} [{what}] n={elems}: bit exact; cuda "
               f"{tk.ms:.3f} ms, plain {tp.ms:.3f} ms{lib}, bound "
-              f"{bound_ms(nbytes):.3f} ms ({nbytes} bytes; {card})")
+              f"{bound_ms(nbytes, reads):.3f} ms ({nbytes} bytes, {reads} "
+              f"of them at the read ceiling; {card})")
         rows.setdefault(kname, {
-            "ms": tk.ms, "plain_ms": tp.ms, "bound_ms": bound_ms(nbytes),
+            "ms": tk.ms, "plain_ms": tp.ms,
+            "bound_ms": bound_ms(nbytes, reads),
             "bound_by": "bytes",
             "library_ms": tl.ms if tl is not None else None,
             "shape": f"{what} n={elems}"})
@@ -1453,7 +1497,8 @@ def main() -> int:
         hist = check_and_time(
             "block_digit_histograms", f"r={r} group=0 block=2^13",
             H.block_digit_histograms, H.block_digit_histograms_plain,
-            (keys, r, 0, blk), 4 * n + 4 * nb * bins, one)[0]
+            (keys, r, 0, blk), 4 * n + 4 * nb * bins, one,
+            reads=4 * n - 4 * nb * bins)[0]
         digit_major = TR.transpose_any(hist).view(-1)
         check_and_time(
             "exclusive_scan", f"digit-major histogram r={r}",
@@ -1530,11 +1575,12 @@ def main() -> int:
     # all-equal keys: every key of a block lands in one counter
     same = torch.full((n,), 0x5EEDBEEF, dtype=torch.int32,
                       device=dev).view(torch.uint32)
-    for r in (8, 1):
+    for r in (8, 4, 2, 1):
         check_and_time(
             "block_digit_histograms", f"all-equal keys r={r} block=2^13",
             H.block_digit_histograms, H.block_digit_histograms_plain,
-            (same, r, 0, blk), 4 * n + 4 * nb * (1 << r), one)
+            (same, r, 0, blk), 4 * n + 4 * nb * (1 << r), one,
+            reads=4 * n - 4 * nb * (1 << r))
     del same
     check_and_time("exclusive_scan", "2^27 words", SC.exclusive_scan,
                    SC.exclusive_scan_plain, (keys,), 8 * n, one,
@@ -1577,7 +1623,7 @@ def main() -> int:
                    (sel, fstreams), npad + 2 * 8 * cnt, list,
                    lambda: torch.stack([f.view(torch.int32)
                                         for f in fstreams], 1)[sel],
-                   npad, cnt)
+                   npad, cnt, reads=npad)
     small = HT.build_table(qdata["bkeys_s"], qdata["bvals_s"],
                            HT.plan_rows(Q.SMALL_BUILD))
     probes = qdata["pkeys_s"]
@@ -1604,7 +1650,7 @@ def main() -> int:
                    (jsel, jstreams), npad + 2 * 12 * jcnt, list,
                    lambda: torch.stack([j.view(torch.int32)
                                         for j in jstreams], 1)[jsel],
-                   npad, jcnt)
+                   npad, jcnt, reads=npad)
     del sel, fstreams, jsel, jstreams
     jkeys = torch.cat([qdata["bkeys"], qdata["pkeys"]])
     jperm = torch.sort(u32_to_i64(jkeys), stable=True).indices
@@ -1691,6 +1737,10 @@ def main() -> int:
     report("histogram 2^30 r=8 block 512 (reference: 18.974 ms on an RTX "
            "3060 Ti)", time_fn(H.block_digit_histograms, big, 8, 0, 512),
            n30)
+    check_and_time("block_digit_histograms", "the flagship's: r=4 block=512",
+                   H.block_digit_histograms, H.block_digit_histograms_plain,
+                   (big, 4, 0, 512), 4 * n30 + 4 * (n30 // 512) * 16, one,
+                   elems=n30, reads=4 * n30 - 4 * (n30 // 512) * 16)
     # merge_pass_runs on each range of the 2^30 chunked pass: 2 streams,
     # the untrimmed runs of the 8 segment sorts; bound: every row of the
     # pass read and written once (2 streams x 4 bytes x 2 x 2^30), library:

@@ -1,0 +1,164 @@
+"""Time this checkout's tile sorts and histograms in turns with another
+checkout's, on one card.
+
+    python -m lsdradixsort_tpu_torch.bench.turns OTHER [--out FILE]
+
+OTHER is the root of another checkout of the repo (an earlier commit
+unpacked with `git archive` into a gitignored directory). Each turn is a
+process of its own that imports one checkout's package, builds that
+checkout's kernels into its own build directory, and runs the cases below
+through the package's public wrappers, so nothing here depends on either
+checkout's C interface. The turns run in the order other, this, this,
+other. Every output is hashed, and the four turns must agree bit for bit.
+
+Cases, on uniform keys made here from seeds (and all-equal keys): the
+keys-only, key+pos and key+pos+payload tile sorts of 2^27 rows at the
+2^15-row tile; the histograms of 2^27 uniform and all-equal keys at
+r = 8, 4, 2, 1, block 2^13; the flagship's histogram of 2^30 keys at
+r = 4, block 512. Each case's time is the median of 5 CUDA-event timings
+after a warm-up. Prints one line a case; --out writes every turn's times
+as JSON.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ITERS = 5
+
+
+def worker() -> dict:
+    """One turn: the cases on the package found on sys.path; returns
+    {case: {"ms", "hash"}} with the package's path."""
+    import torch
+
+    import lsdradixsort_tpu_torch as pkg
+    from lsdradixsort_tpu_torch.kernels import histogram as H
+    from lsdradixsort_tpu_torch.kernels import tile_sort as TS
+
+    dev = torch.device("cuda")
+
+    def keys_of(n, seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return torch.randint(-(1 << 31), 1 << 31, (n,), dtype=torch.int32,
+                             device=dev, generator=g).view(torch.uint32)
+
+    def median_ms(fn):
+        fn()
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(ITERS)]
+        for start, end in events:
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in events)
+
+    def digest(out):
+        h = hashlib.blake2b()
+        stack = [out]
+        while stack:
+            x = stack.pop(0)
+            if isinstance(x, torch.Tensor):
+                h.update(x.contiguous().view(torch.int32).cpu().numpy()
+                         .tobytes())
+            else:
+                stack[:0] = list(x)
+        return h.hexdigest()
+
+    n = 1 << 27
+    keys = keys_of(n, 0)
+    iota = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
+    pay = keys_of(n, 2)
+    same = torch.full((n,), 0x5EEDBEEF, dtype=torch.int32,
+                      device=dev).view(torch.uint32)
+    big = keys_of(1 << 30, 11)
+    tile_rows = (1 << 15) // TS.LANES
+    cases = {
+        "sort_tiles keys n=2^27": lambda: TS.sort_tiles(keys, tile_rows),
+        "sort_tiles_kv key+pos n=2^27":
+            lambda: TS.sort_tiles_kv(keys, iota, tile_rows),
+        "sort_tiles_multi key+pos+payload n=2^27":
+            lambda: TS.sort_tiles_multi(keys, [iota, pay], tile_rows)}
+    for fam, x in (("uniform", keys), ("all-equal", same)):
+        for r in (8, 4, 2, 1):
+            cases[f"histogram {fam} r={r} block=2^13 n=2^27"] = (
+                lambda x=x, r=r: H.block_digit_histograms(x, r, 0, 1 << 13))
+    cases["histogram uniform r=4 block=512 n=2^30"] = (
+        lambda: H.block_digit_histograms(big, 4, 0, 512))
+    res = {name: {"ms": median_ms(fn), "hash": digest(fn())}
+           for name, fn in cases.items()}
+    return {"package": str(Path(pkg.__file__).resolve().parent),
+            "cases": res}
+
+
+def card() -> str:
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.CalledProcessError, IndexError):
+        return "nvidia-smi unavailable"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("other", type=Path, help="root of the other checkout")
+    ap.add_argument("--out", type=Path, default=None,
+                    help="write every turn's times here as JSON")
+    args = ap.parse_args(argv)
+    this = Path(__file__).resolve().parents[2]
+    other = args.other.resolve()
+    turns = []
+    for label, root in (("other", other), ("this", this), ("this", this),
+                        ("other", other)):
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--worker"],
+            cwd=root, env={**os.environ, "PYTHONPATH": str(root)},
+            capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            print(f"turns: the {label} turn ({root}) failed:\n"
+                  f"{proc.stderr[-4000:]}", file=sys.stderr)
+            return 1
+        turn = json.loads(proc.stdout.strip().splitlines()[-1])
+        if Path(turn["package"]) != root / "lsdradixsort_tpu_torch":
+            print(f"turns: the {label} turn imported {turn['package']}, not "
+                  f"{root}'s package", file=sys.stderr)
+            return 1
+        turns.append((label, turn["cases"]))
+    label = card()
+    bad = 0
+    for name in turns[0][1]:
+        hashes = {cases[name]["hash"] for _, cases in turns}
+        ms = [cases[name]["ms"] for _, cases in turns]
+        agree = "bit exact" if len(hashes) == 1 else "OUTPUTS DIFFER"
+        bad += len(hashes) != 1
+        print(f"time other / this in turns, {name}: other {ms[0]:.3f} / "
+              f"{ms[3]:.3f} ms, this {ms[1]:.3f} / {ms[2]:.3f} ms; {agree} "
+              f"({label})")
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(
+            {"card": label, "order": [lb for lb, _ in turns],
+             "other": str(other), "this": str(this),
+             "turns": [cases for _, cases in turns]}, indent=1))
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] == ["--worker"]:
+        # import the package of the checkout this turn runs in (cwd and
+        # PYTHONPATH), not this file's own
+        sys.path.pop(0)
+        print(json.dumps(worker()))
+        sys.exit(0)
+    sys.exit(main())

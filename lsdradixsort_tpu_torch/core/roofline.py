@@ -6,8 +6,12 @@ The reference's implicit roofline is the RTX 3060 Ti's 448 GB/s peak
 against a measured ceiling, with the published spec kept for context:
 for the H100 the ceiling is the rate of a device-to-device copy,
 `dst.copy_(src)` of 1 GiB, read and write bytes counted, the median of 5
-CUDA-event timings (`measure_copy_gbps`, which `chip_smoke.py` runs in
-phase 1 of every run and uses for that run's bounds).
+CUDA-event timings (`measure_copy_gbps`). A kernel that mostly reads (a
+histogram) can beat that rate, since its traffic does not turn from
+reads to writes: `measure_read_gbps` times the read alone, with a kernel
+of its own (csrc/roofline.cu), since the library's reductions read slower
+than a copy. `chip_smoke.py` runs both in phase 1 of every run and uses
+them for that run's bounds.
 """
 from __future__ import annotations
 
@@ -73,6 +77,45 @@ def measure_copy_gbps(device="cuda", nbytes: int = 1 << 30,
     dst = torch.empty_like(src)
     t = time_fn(dst.copy_, src, iters=iters)
     return 2 * nbytes / t.seconds / 1e9
+
+
+def read_probe(x: torch.Tensor, out: torch.Tensor) -> None:
+    """out[0] += the sum mod 2^32 of the 32-bit words of x (a CUDA tensor,
+    16-byte aligned, a multiple of 4 words), each read once by
+    csrc/roofline.cu `read_probe`; out is one int32 on the same card."""
+    import ctypes
+
+    from lsdradixsort_tpu_torch.kernels import _build
+    with torch.cuda.device(x.device):
+        fn = _build.function("lsd_read_probe", [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_void_p])
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _build.check(fn(x.data_ptr(), x.numel(), out.data_ptr(),
+                        ctypes.c_void_p(stream)), "lsd_read_probe")
+
+
+def measure_read_gbps(device="cuda", nbytes: int = 1 << 29,
+                      iters: int = 5) -> tuple[float, dict[str, float]]:
+    """The card's read rate, GB/s: `nbytes` of random int32 words read
+    once, with one word written, over the median of `iters` CUDA-event
+    timings after a warm-up; by `read_probe` (checked against torch.sum
+    first) and, for comparison, by `torch.amax`. Returns the faster rate
+    and both."""
+    from lsdradixsort_tpu_torch.core.timing import time_fn
+    x = torch.randint(-(1 << 31), 1 << 31, (nbytes // 4,), dtype=torch.int32,
+                      device=device)
+    out = torch.zeros(1, dtype=torch.int32, device=device)
+    read_probe(x, out)
+    want = int(x.sum(dtype=torch.int64)) & 0xFFFFFFFF
+    if int(out) & 0xFFFFFFFF != want:
+        raise RuntimeError(f"read_probe: sum {int(out) & 0xFFFFFFFF:#x}, "
+                           f"torch.sum {want:#x}")
+    rates = {
+        "read_probe": nbytes / time_fn(read_probe, x, out,
+                                       iters=iters).seconds / 1e9,
+        "amax": nbytes / time_fn(torch.amax, x, iters=iters).seconds / 1e9}
+    return max(rates.values()), rates
 
 
 def sort_pass_bytes(n: int, key_bytes: int = 4, value_bytes: int = 0) -> int:

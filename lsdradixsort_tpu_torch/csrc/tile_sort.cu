@@ -18,43 +18,42 @@
 // memory (227 KB) holds a 2^15-row tile of one word (128 KB) but not of 2,
 // 3 or 4 words (256, 384 or 512 KB).
 //
-// Two designs:
-//
-// * One word (sort_tiles): bitonic_local sorts a tile in one block's shared
-//   memory, one shared-memory round trip and barrier a stage. Tiles above
-//   2^15 rows run their stages of distance >= 2^15 as device-memory passes
-//   (bitonic_stage), one thread a pair.
-//
-// * Two to four words (sort_tiles_kv, sort_tiles_multi): cluster_sort, one
-//   thread-block cluster of C CTAs a tile, each CTA holding R = 2^rows_log2
-//   rows of every word in its shared memory (C*R = 2^15 rows at the paths'
-//   tile: C = 2 for 2 and 3 words, 4 for 4), so the words cross device
-//   memory once each way. The host hands the kernel its schedule ("steps",
-//   kernels/tile_sort.py `tile_plan`); each step is one shared-memory round
-//   trip, in which each thread takes its groups of E = 2^G rows into
-//   registers one after another:
-//     - a register group: the E rows that differ only in bits b..b+G-1 of
-//       the row index, on which the thread runs up to G consecutive stages
-//       of one phase (the set is closed under each stage's partner map
-//       i ^ 2^jl, and the direction, bit kl of the row, is the same for
-//       all of it since kl lies outside those bits). About 26-34 round
-//       trips instead of 120 stages; the first step runs phases 1..G
-//       straight from the load, the last stores straight from registers;
-//     - a cross-CTA stage (distance 2^jl >= R) first: each thread reads its
-//       rows' partners from the partner CTA's shared memory (distributed
-//       shared memory), keeps its own side of each pair (the min on the low
-//       side of an ascending pair), and a cluster barrier keeps every read
-//       ahead of any write; no CTA writes another's memory.
-//   What then bounds it is the integer pipe (half the rate of the FP32
-//   one): a compare-exchange of 3 or 4 words is a subtract-with-borrow
-//   chain and one LOP3 a word and side, of 2 words a 64-bit compare and
-//   selects; shared memory is swizzled, word w of local row i at
-//   w * RS + (i ^ ((i >> G) & 31)), so the 32 rows a warp touches per access
-//   lie in 32 banks at every b. Riders are gathered at the store by the
-//   index word, which never reaches device memory. Tiles larger than the
-//   cluster's span run their stages of distance >= C*R as device-memory
-//   passes (bitonic_stage) and the cluster kernel finishes each phase's
-//   lower stages.
+// One design for every word count, cluster_sort: one thread-block cluster
+// of C CTAs a tile, each CTA holding R = 2^rows_log2 rows of every word in
+// its shared memory, so the words cross device memory once each way. At
+// the paths' 2^15-row tile, C = 1 for one word (128 KB, one CTA an SM,
+// no cross-CTA stage), 2 for 2 and 3 words, 4 for 4. The host hands the
+// kernel its schedule ("steps", kernels/tile_sort.py `tile_plan`); each
+// step is one shared-memory round trip, in which each thread takes its
+// groups of E = 2^G rows into registers one after another:
+//   - a register group: the E rows that differ only in bits b..b+G-1 of the
+//     row index, on which the thread runs up to G consecutive stages of one
+//     phase (the set is closed under each stage's partner map i ^ 2^jl, and
+//     the direction, bit kl of the row, is the same for all of it since kl
+//     lies outside those bits). 22 round trips instead of 120 stages at
+//     E = 64 (one word), 26 at E = 32 (two), 34 at E = 16 (three and
+//     four); the first step runs phases 1..G straight from the load, the
+//     last stores straight from registers;
+//   - a cross-CTA stage (distance 2^jl >= R) first: each thread reads its
+//     rows' partners from the partner CTA's shared memory (distributed
+//     shared memory), keeps its own side of each pair (the min on the low
+//     side of an ascending pair), and a cluster barrier keeps every read
+//     ahead of any write; no CTA writes another's memory.
+// What then bounds it is the integer pipe (half the rate of the FP32 one)
+// and the shared-memory round trips: a compare-exchange of one word is a
+// min and a max, of 2 words a 64-bit compare and selects, of 3 or 4 a
+// subtract-with-borrow chain and one LOP3 a word and side. For one word
+// at 2^27 rows on an H100 SXM (700 W) a round trip costs about 0.06 ms,
+// against 0.036 for its 1 GiB at 128 B a clock an SM, and a stage of min
+// and max about 0.008 ms on the integer pipe: 2.97 ms a sort at E = 64,
+// 3.11 at E = 32 (the one CTA an SM waits at each step's barrier). Shared
+// memory is swizzled, word w of local row i at w * RS + (i ^ ((i >> G) &
+// 31)), so the 32 rows a warp touches per access lie in 32 banks at every
+// b. Riders are gathered at the store by the index word, which never
+// reaches device memory. Tiles larger than the cluster's span run their
+// stages of distance >= C*R as device-memory passes (bitonic_stage), one
+// thread a pair, and the cluster kernel finishes each phase's lower
+// stages.
 #include <cstdint>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -64,7 +63,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxWords = 4;
-constexpr int kBlockThreads = 1024;
 constexpr int kStageThreads = 256;
 constexpr int kMaxRiders = 16;
 constexpr int kMaxSteps = 64;
@@ -131,56 +129,6 @@ __device__ __forceinline__ bool ascending(long long row, int kl,
   return kl >= tile_log2 || ((row >> kl) & 1) == 0;
 }
 
-// One block per sub-tile of S = 2^sub_log2 rows: load the words into
-// shared memory, run phases kl = k_begin..k_end (only their stages with
-// distance < S), store. k_begin = 1, k_end = sub_log2 sorts the sub-tile;
-// k_begin = k_end = kl > sub_log2 finishes the low stages of phase kl.
-template <int W>
-__global__ void __launch_bounds__(kBlockThreads)
-bitonic_local(Words io, int tile_log2, int sub_log2, int k_begin, int k_end,
-              uint32_t flip1) {
-  extern __shared__ uint32_t sm[];
-  const int S = 1 << sub_log2;
-  const long long base = static_cast<long long>(blockIdx.x) << sub_log2;
-  const long long tile_mask = (1LL << tile_log2) - 1;
-  for (int l = threadIdx.x; l < S; l += blockDim.x) {
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      const uint32_t* s = io.src[w];
-      sm[w * S + l] = s ? s[base + l]
-                        : static_cast<uint32_t>((base + l) & tile_mask);
-    }
-  }
-  __syncthreads();
-  for (int kl = k_begin; kl <= k_end; ++kl) {
-    for (int jl = min(kl, sub_log2) - 1; jl >= 0; --jl) {
-      for (int p = threadIdx.x; p < S / 2; p += blockDim.x) {
-        const int lo = ((p >> jl) << (jl + 1)) | (p & ((1 << jl) - 1));
-        const int hi = lo | (1 << jl);
-        uint32_t a[W], b[W];
-#pragma unroll
-        for (int w = 0; w < W; ++w) {
-          a[w] = sm[w * S + lo];
-          b[w] = sm[w * S + hi];
-        }
-        const bool up = ascending(base + lo, kl, tile_log2);
-        if (up ? greater<W>(a, b, flip1) : greater<W>(b, a, flip1)) {
-#pragma unroll
-          for (int w = 0; w < W; ++w) {
-            sm[w * S + lo] = b[w];
-            sm[w * S + hi] = a[w];
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int l = threadIdx.x; l < S; l += blockDim.x) {
-#pragma unroll
-    for (int w = 0; w < W; ++w) io.dst[w][base + l] = sm[w * S + l];
-  }
-}
-
 // One compare-exchange stage at distance 2^jl over device memory, in
 // place on io.dst: one thread per pair.
 template <int W>
@@ -208,7 +156,7 @@ bitonic_stage(Words io, long long npairs, int tile_log2, int kl, int jl,
   }
 }
 
-// ---- cluster_sort: words 2..4 ----------------------------------------------
+// ---- cluster_sort ------------------------------------------------------------
 
 template <int G>
 __device__ __forceinline__ uint32_t swizzle(uint32_t i) {
@@ -222,11 +170,14 @@ template <int W>
 __device__ __forceinline__ bool greater_row(const uint32_t (&a)[W],
                                             const uint32_t (&b)[W]) {
   using u64 = unsigned long long;
-  const u64 x = (static_cast<u64>(a[0]) << 32) | a[1];
-  const u64 y = (static_cast<u64>(b[0]) << 32) | b[1];
-  if constexpr (W == 2) {
-    return x > y;
+  if constexpr (W == 1) {
+    return a[0] > b[0];
+  } else if constexpr (W == 2) {
+    return ((static_cast<u64>(a[0]) << 32) | a[1]) >
+           ((static_cast<u64>(b[0]) << 32) | b[1]);
   } else {
+    const u64 x = (static_cast<u64>(a[0]) << 32) | a[1];
+    const u64 y = (static_cast<u64>(b[0]) << 32) | b[1];
     // words (0, 1, 2[, 3]) as the 128-bit integer whose high half is word 0
     // (W = 3) or words 0, 1 (W = 4)
     using u128 = unsigned __int128;
@@ -275,31 +226,38 @@ __device__ __forceinline__ uint32_t greater_mask(const uint32_t (&a)[W],
 }
 
 // Compare-exchange of register rows e < f: the larger to f; tied rows
-// stay. Two words select by the predicate of one 64-bit compare; three or
-// four by the borrow mask, with one LOP3 a word and side (fewer integer
-// instructions than a compare chain and selects).
+// stay. One word is a min and a max (equal keys are identical, so a tie
+// needs no order); two words select by the predicate of one 64-bit
+// compare; three or four by the borrow mask, with one LOP3 a word and side
+// (fewer integer instructions than a compare chain and selects).
 template <int W, int E>
 __device__ __forceinline__ void exchange(uint32_t (&v)[W][E], int e,
                                          int f) {
-  uint32_t a[W], b[W];
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    a[w] = v[w][e];
-    b[w] = v[w][f];
-  }
-  if constexpr (W >= 3) {
-    const uint32_t m = greater_mask<W>(a, b);
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      v[w][e] = (a[w] & ~m) | (b[w] & m);
-      v[w][f] = (b[w] & ~m) | (a[w] & m);
-    }
+  if constexpr (W == 1) {
+    const uint32_t a = v[0][e], b = v[0][f];
+    v[0][e] = min(a, b);
+    v[0][f] = max(a, b);
   } else {
-    const bool swap = greater_row<W>(a, b);
+    uint32_t a[W], b[W];
 #pragma unroll
     for (int w = 0; w < W; ++w) {
-      v[w][e] = swap ? b[w] : a[w];
-      v[w][f] = swap ? a[w] : b[w];
+      a[w] = v[w][e];
+      b[w] = v[w][f];
+    }
+    if constexpr (W >= 3) {
+      const uint32_t m = greater_mask<W>(a, b);
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        v[w][e] = (a[w] & ~m) | (b[w] & m);
+        v[w][f] = (b[w] & ~m) | (a[w] & m);
+      }
+    } else {
+      const bool swap = greater_row<W>(a, b);
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        v[w][e] = swap ? b[w] : a[w];
+        v[w][f] = swap ? a[w] : b[w];
+      }
     }
   }
 }
@@ -330,8 +288,11 @@ __device__ __forceinline__ void stages_n(uint32_t (&v)[W][1 << G], int n) {
     case 2: stages<W, G, 2, DOWN>(v); break;
     case 3: stages<W, G, 3, DOWN>(v); break;
     case 4: stages<W, G, 4, DOWN>(v); break;
-    default:
+    case 5:
       if constexpr (G >= 5) stages<W, G, 5, DOWN>(v);
+      break;
+    default:
+      if constexpr (G >= 6) stages<W, G, 6, DOWN>(v);
       break;
   }
 }
@@ -600,53 +561,20 @@ cluster_sort(Words io, Riders rd, Steps prog, Shape sh) {
   }
 }
 
-// Largest sub-tile of one word that fits 128 KB of shared memory.
-constexpr int kSubLog2One = 15;
-
 constexpr int imin(int a, int b) { return a < b ? a : b; }
-
-cudaError_t sort_tiles_one(Words io, long long n, int tile_log2,
-                           cudaStream_t stream) {
-  const int sub_log2 = imin(tile_log2, kSubLog2One);
-  const int S = 1 << sub_log2;
-  const int smem = S * static_cast<int>(sizeof(uint32_t));
-  cudaError_t err = cudaFuncSetAttribute(
-      bitonic_local<1>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const int threads = imin(S / 2, kBlockThreads);
-  const unsigned blocks = static_cast<unsigned>(n >> sub_log2);
-  bitonic_local<1><<<blocks, threads, smem, stream>>>(
-      io, tile_log2, sub_log2, 1, sub_log2, 0u);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  Words inplace = io;
-  inplace.src[0] = io.dst[0];
-  const long long npairs = n / 2;
-  const unsigned stage_blocks =
-      static_cast<unsigned>((npairs + kStageThreads - 1) / kStageThreads);
-  for (int kl = sub_log2 + 1; kl <= tile_log2; ++kl) {
-    for (int jl = kl - 1; jl >= sub_log2; --jl) {
-      bitonic_stage<1><<<stage_blocks, kStageThreads, 0, stream>>>(
-          inplace, npairs, tile_log2, kl, jl, 0u);
-      if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    }
-    bitonic_local<1><<<blocks, threads, smem, stream>>>(
-        inplace, tile_log2, sub_log2, kl, kl, 0u);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
 
 // The built (words, log2 E) pairs: the threads of a full CTA, which set
 // its registers (65536 / threads), and log2 of the most rows a CTA holds,
 // the stride of a word in shared memory; 0 where the pair is not built
 // (kernels/tile_sort.py GEOMETRY names the pair each word count uses).
 constexpr int max_threads(int W, int G) {
-  return (W == 2 && G == 5) || (W == 3 && G == 4) || (W == 4 && G == 4)
+  return (W == 1 && G == 6) || (W == 2 && G == 5) || (W == 3 && G == 4) ||
+                 (W == 4 && G == 4)
              ? 512
              : 0;
 }
 constexpr int max_rows_log2(int W, int G) {
-  return max_threads(W, G) ? (W == 4 ? 13 : 14) : 0;
+  return max_threads(W, G) ? (W == 1 ? 15 : W == 4 ? 13 : 14) : 0;
 }
 
 // Whether `code` is a schedule the kernels can run without leaving their
@@ -754,18 +682,17 @@ cudaError_t sort_cluster(const Words& io, const Riders& rd, const int* code,
 }  // namespace
 
 // Sort every tile of 2^tile_log2 rows of `nwords` (1..4) u32 words; n a
-// multiple of the tile, 1 <= tile_log2 <= 30. One word runs bitonic_local
-// (and bitonic_stage above 2^15 rows) and ignores the other arguments.
-// Two to four run cluster_sort: clusters of `cluster` CTAs of
-// 2^rows_log2 rows each, E = 2^G rows a thread at a time (a built pair of
-// words and G, see max_threads), by the schedule `code`
-// (kernels/tile_sort.py `tile_plan`). src[w] == nullptr makes word w the row's index in its
-// tile; dst[w] == nullptr leaves it unstored (allowed only when the
-// schedule has no device-memory stage). With nriders > 0 the last word
-// must be the index word, and rider_dst[k][row] = rider_src[k][tile_base +
-// index]. Returns a cudaError_t: a refused cluster launch (no cluster of
-// that size and shared memory fits the card) returns the occupancy
-// query's error or cudaErrorLaunchOutOfResources.
+// multiple of the tile, 1 <= tile_log2 <= 30, with cluster_sort: clusters
+// of `cluster` CTAs of 2^rows_log2 rows each, E = 2^G rows a thread at a
+// time (a built pair of words and G, see max_threads), by the schedule
+// `code` (kernels/tile_sort.py `tile_plan`). src[w] == nullptr makes word
+// w the row's index in its tile; dst[w] == nullptr leaves it unstored
+// (allowed only when the schedule has no device-memory stage). With
+// nriders > 0 the last word must be the index word, and
+// rider_dst[k][row] = rider_src[k][tile_base + index]. Returns a
+// cudaError_t: a refused cluster launch (no cluster of that size and
+// shared memory fits the card) returns the occupancy query's error or
+// cudaErrorLaunchOutOfResources.
 extern "C" int lsd_sort_tiles(const void* const* src, void* const* dst,
                               int nwords, long long n, int tile_log2,
                               unsigned int flip1, int cluster, int rows_log2,
@@ -785,16 +712,10 @@ extern "C" int lsd_sort_tiles(const void* const* src, void* const* dst,
     io.dst[w] = static_cast<uint32_t*>(dst[w]);
     stored_index = stored_index && io.dst[w] != nullptr;
   }
-  if (nwords == 1) {
-    if (io.src[0] == nullptr || io.dst[0] == nullptr) {
-      return cudaErrorInvalidValue;
-    }
-    return n == 0 ? cudaSuccess : sort_tiles_one(io, n, tile_log2, st);
-  }
   const int cluster_log2 = cluster == 4 ? 2 : (cluster == 2 ? 1 : 0);
   const int span = rows_log2 + cluster_log2;
   if ((cluster != 1 && cluster != 2 && cluster != 4) || nriders < 0 ||
-      nriders > kMaxRiders || G < 1 || G > 5 || rows_log2 < G ||
+      nriders > kMaxRiders || G < 1 || G > 6 || rows_log2 < G ||
       rows_log2 > max_rows_log2(nwords, G) ||
       n % (1LL << span) != 0 || (cluster > 1 && span > tile_log2) ||
       (nriders > 0 && io.src[nwords - 1] != nullptr) ||
@@ -814,6 +735,7 @@ extern "C" int lsd_sort_tiles(const void* const* src, void* const* dst,
 #define LSD_CASE(W, G1)                                                    \
   case W * 8 + G1:                                                         \
     return sort_cluster<W, G1>(io, rd, code, ncode, sh, cluster, n, st);
+    LSD_CASE(1, 6)
     LSD_CASE(2, 5)
     LSD_CASE(3, 4)
     LSD_CASE(4, 4)

@@ -10,11 +10,12 @@ lsdradixsort_tpu/kernels/histogram.py.
 The TPU kernel counts with byte- or nibble-packed one-hot counters
 (`counter_bits` 8 or 4) because the TPU has no atomics. Both give the
 same counts; the port checks `counter_bits` and otherwise ignores it. On a
-CUDA tensor `block_digit_histograms` launches ``csrc/histogram.cu``
-(shared-memory atomics, the reference's design; its header says what
-bounds it) for r up to 12, the counters a CTA keeps in shared memory, and
-its second kernel, with the counters in device memory and global
-atomics, for r = 13..31; on a CPU tensor it runs the plain PyTorch
+CUDA tensor `block_digit_histograms` launches ``csrc/histogram.cu`` (its
+header says what bounds it and how the design copes): for r up to 12 the
+counters live in shared memory, a column a lane, a copy a warp or a copy
+a CTA (`hist_plan`), and each counting group walks units of at most
+UNIT_KEYS keys; for r = 13..31 a second kernel keeps them in device
+memory with global atomics. On a CPU tensor it runs the plain PyTorch
 version beside it (`torch.bincount` of block * 2^r + digit), which
 `chip_smoke.py` also runs on the card to check the kernel. `LAUNCHES`
 and `PLAIN_CALLS` count both.
@@ -22,6 +23,7 @@ and `PLAIN_CALLS` count both.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -34,6 +36,41 @@ MAX_R = 31           # 2^r counters a block; a 32-bit digit has no room
 
 LAUNCHES = {"block_digit_histograms": 0}
 PLAIN_CALLS = {"block_digit_histograms": 0}
+
+# csrc/histogram.cu's counting groups and counters, by r: a column of
+# counters a lane (LANE, r <= LANE_MAX_R), a copy a warp (WARP, r <=
+# WARP_MAX_R), a copy a CTA of CTA_THREADS (CTA, r <= SHARED_MAX_R); above
+# that, the device-memory kernel
+LANE, WARP, CTA = 0, 1, 2
+LANE_MAX_R, WARP_MAX_R, SHARED_MAX_R = 4, 8, 12
+CTA_THREADS = 256
+UNIT_KEYS = 1 << 13     # keys a counting group counts before it writes
+
+
+class HistPlan(NamedTuple):
+    """How csrc/histogram.cu counts blocks of `block_size` keys at r <=
+    SHARED_MAX_R: counters kept as `mode` says by groups of
+    `group_threads`, each block counted as `parts` units of `unit` keys
+    (the last unit of a block may be shorter), `units` in all."""
+    mode: int
+    group_threads: int
+    unit: int
+    parts: int
+    units: int
+
+
+def hist_plan(n: int, block_size: int, r: int) -> HistPlan:
+    """The counting plan of n keys in blocks of `block_size` (a multiple
+    of LANES that divides n) at r <= SHARED_MAX_R."""
+    if not 0 <= r <= SHARED_MAX_R:
+        raise ValueError(f"r={r}: shared-memory counters hold r <= "
+                         f"{SHARED_MAX_R}")
+    mode = LANE if r <= LANE_MAX_R else WARP if r <= WARP_MAX_R else CTA
+    parts = -(-block_size // UNIT_KEYS)
+    unit = -(-block_size // parts // LANES) * LANES
+    parts = -(-block_size // unit)
+    return HistPlan(mode, CTA_THREADS if mode == CTA else 32, unit, parts,
+                    n // block_size * parts)
 
 
 def _check(keys: torch.Tensor, r: int, block_size: int,
@@ -85,13 +122,18 @@ def block_digit_histograms(keys: torch.Tensor, r: int, group: int,
     n = keys.shape[0]
     out = torch.empty((n // block_size, 1 << r), dtype=torch.uint32,
                       device=keys.device)
+    # the device-memory kernel (r > SHARED_MAX_R) takes no plan
+    plan = (hist_plan(n, block_size, r) if r <= SHARED_MAX_R
+            else HistPlan(LANE, 0, 0, 0, 0))
     with torch.cuda.device(keys.device):
         fn = _build.function("lsd_block_histograms", [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         stream = torch.cuda.current_stream(keys.device).cuda_stream
         _build.check(fn(keys.data_ptr(), out.data_ptr(), n, block_size, r,
-                        group, ctypes.c_void_p(stream)),
+                        group, plan.mode, plan.unit, plan.parts,
+                        ctypes.c_void_p(stream)),
                      "lsd_block_histograms")
     LAUNCHES["block_digit_histograms"] += 1
     return out

@@ -102,21 +102,29 @@ def sort_tiles_multi_plain(keys, values, tile_rows: int = 128,
 
 # --- CUDA kernels -----------------------------------------------------------
 
-# cluster_sort's geometry a word count (2..4): log2 of the most rows a CTA
-# holds (all its words in shared memory: 128, 192 and 128 KB), log2 of the
-# rows E a thread holds in registers, and the threads of a full CTA (512,
-# so up to 128 registers a thread); a thread takes its CTA's rows E at a
-# time, 2^rows / (E * threads) groups a step.
-GEOMETRY = {2: (14, 5, 512), 3: (14, 4, 512), 4: (13, 4, 512)}
+# cluster_sort's geometry a word count (1..4): log2 of the most rows a CTA
+# holds (all its words in shared memory: 128, 128, 192 and 128 KB), log2 of
+# the rows E a thread holds in registers, and the threads of a full CTA
+# (512, so up to 128 registers a thread); a thread takes its CTA's rows E
+# at a time, 2^rows / (E * threads) groups a step.
+GEOMETRY = {1: (15, 6, 512), 2: (14, 5, 512), 3: (14, 4, 512),
+            4: (13, 4, 512)}
 MAX_CLUSTER = 4
 SMEM_LIMIT = 232_448      # bytes of shared memory a block may use
 MAX_RIDERS = 16           # riders one launch gathers (csrc kMaxRiders)
 MAX_STEPS = 64            # steps of one cluster launch (csrc kMaxSteps)
 STAGE, FIRST, GROUP = 0, 1, 2
+# lsd_sort_tiles(words, dst, nwords, n, tile_log2, flip1, cluster,
+# rows_log2, group_log2, code, ncode, riders, rider_dst, nriders, stream)
+SORT_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p]
 
 # CUDA kernel launches of the tile sorts, by kernel (a wrapper call counts
 # one in LAUNCHES and its kernels' launches here)
-KERNEL_LAUNCHES = {"bitonic_local": 0, "bitonic_stage": 0, "cluster_sort": 0}
+KERNEL_LAUNCHES = {"bitonic_stage": 0, "cluster_sort": 0}
 
 
 class Step(NamedTuple):
@@ -175,8 +183,7 @@ class TilePlan(NamedTuple):
         runs = sum(s.kind != STAGE and (i == 0 or self.steps[i - 1].kind
                                          == STAGE)
                    for i, s in enumerate(self.steps))
-        return {"bitonic_local": 0, "bitonic_stage": stages,
-                "cluster_sort": runs}
+        return {"bitonic_stage": stages, "cluster_sort": runs}
 
 
 def _schedule(t: int, r: int, s: int, g: int) -> list[Step]:
@@ -214,12 +221,12 @@ def _schedule(t: int, r: int, s: int, g: int) -> list[Step]:
 
 def tile_plan(nwords: int, tile_log2: int, n: int = 0) -> TilePlan:
     """The launch plan of `cluster_sort` for tiles of 2^tile_log2 rows of
-    `nwords` (2..4) words over n rows (a multiple of the tile; 0: one
+    `nwords` (1..4) words over n rows (a multiple of the tile; 0: one
     tile). A tile above a CTA's rows takes a cluster of up to MAX_CLUSTER
     CTAs; a smaller one shares a CTA with its neighbours as far as n
     allows."""
     if nwords not in GEOMETRY:
-        raise ValueError(f"cluster_sort sorts 2..4 words, not {nwords}")
+        raise ValueError(f"cluster_sort sorts 1..4 words, not {nwords}")
     rmax, g, threads = GEOMETRY[nwords]
     if tile_log2 <= rmax:
         cluster = 1
@@ -240,26 +247,14 @@ def tile_plan(nwords: int, tile_log2: int, n: int = 0) -> TilePlan:
 
 def _sort_words(words, riders, tile_log2: int, flip1: bool):
     """Sort the tiles of `words` (u32 streams, the key first; None for the
-    row-index word, last, when riders ride) with csrc/tile_sort.cu: one
-    word through bitonic_local, 2..4 through cluster_sort, which gathers
-    the riders by the index word. Returns the sorted words (index word
-    dropped) and riders."""
+    row-index word, last, when riders ride) with csrc/tile_sort.cu
+    `cluster_sort`, which gathers the riders by the index word. Returns
+    the sorted words (index word dropped) and riders."""
     key = words[0]
     n = key.shape[0]
     stream = ctypes.c_void_p(torch.cuda.current_stream(key.device).cuda_stream)
     with torch.cuda.device(key.device):
-        sort = _build.function("lsd_sort_tiles", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_uint, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-        if len(words) == 1:
-            dst = [torch.empty_like(key)]
-            _build.check(sort(_build.pointers(words), _build.pointers(dst),
-                              1, n, tile_log2, 0, 1, 0, 0, None, 0, None,
-                              None, 0, stream), "lsd_sort_tiles")
-            _count(_one_word_launches(tile_log2))
-            return dst, []
+        sort = _build.function("lsd_sort_tiles", SORT_ARGTYPES)
         plan = tile_plan(len(words), tile_log2, n)
         code = (ctypes.c_int * len(plan.steps))(*[s.code for s in plan.steps])
         # the index word reaches device memory only for the stages above
@@ -290,15 +285,6 @@ def _sort_words(words, riders, tile_log2: int, flip1: bool):
 def _count(launches: dict) -> None:
     for k, v in launches.items():
         KERNEL_LAUNCHES[k] += v
-
-
-def _one_word_launches(tile_log2: int) -> dict:
-    """Kernel launches of one keys-only call: bitonic_local over sub-tiles
-    of 2^15 rows, then for each phase above them its device-memory stages
-    and a bitonic_local finishing the rest."""
-    high = max(tile_log2 - 15, 0)
-    return {"bitonic_local": 1 + high,
-            "bitonic_stage": high * (high + 1) // 2, "cluster_sort": 0}
 
 
 def sort_tiles(keys: torch.Tensor, tile_rows: int = 128,

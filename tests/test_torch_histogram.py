@@ -74,3 +74,76 @@ def test_counters_count_plain_calls_on_cpu():
     T.digit_histogram(k, 2, 0)
     assert T.LAUNCHES == launches
     assert T.PLAIN_CALLS["block_digit_histograms"] == plain + 2
+
+
+@pytest.mark.parametrize("kind", ["uniform", "all_equal", "presorted"])
+@pytest.mark.parametrize("r,block", [(4, 512), (8, 1 << 13)])
+def test_path_blocks_match_jax(r, block, kind):
+    # the flagship's block 512 at r = 4 and the composed path's 2^13 at
+    # r = 8, on uniform, all-equal and presorted keys
+    keys = {"uniform": _keys(2 * block, seed=54),
+            "all_equal": np.full(2 * block, 0x5EEDBEEF, np.uint32),
+            "presorted": np.arange(2 * block, dtype=np.uint32)}[kind]
+    want = np.asarray(J.block_digit_histograms(jnp.asarray(keys), r, 0,
+                                               block))
+    got = T.block_digit_histograms(from_numpy(keys), r, 0, block)
+    np.testing.assert_array_equal(to_numpy(got), want)
+
+
+@pytest.mark.parametrize("r", [1, 4, 5, 8, 9, 12])
+@pytest.mark.parametrize("block", [128, 512, 1 << 13, 3 * 1024 * 9,
+                                   1 << 15, 1 << 17])
+def test_hist_plan_counts_every_key_once(block, r):
+    # the plan's coverage of the keys, not the kernel: a copy of
+    # csrc/histogram.cu's walk, replayed on numpy (counting group g of a
+    # grid of `ctas` CTAs takes units g, g + groups, ...; unit u is part
+    # u % parts of block u // parts, its thread t the 4-key vectors t,
+    # t + group_threads, ... of the unit); chip_smoke.py holds the kernel
+    # itself against the plain version on the card
+    n = 4 * block
+    plan = T.hist_plan(n, block, r)
+    assert plan.mode == (T.LANE if r <= T.LANE_MAX_R else
+                         T.WARP if r <= T.WARP_MAX_R else T.CTA)
+    assert plan.unit % T.LANES == 0 and plan.unit <= T.UNIT_KEYS
+    assert (plan.parts - 1) * plan.unit < block <= plan.parts * plan.unit
+    assert plan.units == n // block * plan.parts
+    keys = _keys(n, seed=r)
+    digits = (keys >> np.uint32(r)) & np.uint32((1 << r) - 1)
+    gpc = T.CTA_THREADS // plan.group_threads
+    for ctas in (1, 3, 7):
+        seen = np.zeros(n, np.int64)
+        counts = np.zeros((n // block, 1 << r), np.int64)
+        groups = ctas * gpc
+        for g in range(groups):
+            for u in range(g, plan.units, groups):
+                blk, p = divmod(u, plan.parts)
+                lo = blk * block + p * plan.unit
+                length = min(plan.unit, block - p * plan.unit)
+                for t in range(plan.group_threads):
+                    vecs = np.arange(t, length // 4, plan.group_threads)
+                    rows = (lo + 4 * vecs[:, None] + np.arange(4)).ravel()
+                    seen[rows] += 1
+                    np.add.at(counts[blk], digits[rows], 1)
+        assert (seen == 1).all()
+        np.testing.assert_array_equal(
+            counts, to_numpy(T.block_digit_histograms(from_numpy(keys), r, 1,
+                                                      block)))
+
+
+def test_cuda_limits_match_hist_plan():
+    # csrc/histogram.cu refuses any mode but the one hist_plan picks for
+    # r, so its limits must be hist_plan's
+    import re
+    from pathlib import Path
+    src = (Path(T.__file__).resolve().parent.parent / "csrc"
+           / "histogram.cu").read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kLaneMaxR"] == T.LANE_MAX_R
+    assert consts["kWarpMaxR"] == T.WARP_MAX_R
+    assert consts["kMaxR"] == T.SHARED_MAX_R
+    assert consts["kThreads"] == T.CTA_THREADS
+    assert re.search(r"kLane = (\d+), kWarp = (\d+), kCta = (\d+)",
+                     src).groups() == tuple(map(str, (T.LANE, T.WARP, T.CTA)))
+    assert [T.hist_plan(1024, 1024, r).mode for r in range(13)] == (
+        [T.LANE] * 5 + [T.WARP] * 4 + [T.CTA] * 4)

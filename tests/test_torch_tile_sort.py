@@ -249,7 +249,7 @@ def _replay(plan, key):
 
 
 @pytest.mark.parametrize("tile_log2", range(7, 19))
-@pytest.mark.parametrize("nwords", [2, 3, 4])
+@pytest.mark.parametrize("nwords", [1, 2, 3, 4])
 def test_tile_plan(nwords, tile_log2):
     t = tile_log2
     n = 1 << max(t, 15)          # several tiles a CTA below 2^15 rows
@@ -265,6 +265,9 @@ def test_tile_plan(nwords, tile_log2):
         # the paths' tile fits one cluster: 2^15 / C rows of every word
         # in each CTA
         assert (nwords * 4 << 15) // plan.cluster <= plan.smem_bytes
+    if nwords == 1 and t <= 15:
+        # keys alone: one CTA a tile (128 KB), no cluster partner
+        assert plan.cluster == 1 and plan.smem_bytes == 1 << 17
     rng = np.random.default_rng(t * 8 + nwords)
     random = [rng.integers(0, 3, n, dtype=np.uint32) for _ in range(nwords)]
     random[-1] = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(
@@ -281,12 +284,17 @@ def test_tile_plan(nwords, tile_log2):
             (kl, jl) for kl, jl in network if 1 << jl >= 1 << s}
         if t == 15:
             assert all(w != "device" for _, _, w in run)
+        if t == 15 and nwords == 1:
+            assert all(w == "registers" for _, _, w in run)
+            assert len(plan.steps) == 22       # E = 64 rows a thread
         for tile in range(n >> t):
             sl = slice(tile << t, (tile + 1) << t)
             order = np.lexsort([w[sl] for w in reversed(words)])
             np.testing.assert_array_equal(got[sl], _packed(words)[sl][order])
     # one cluster launch a call where the tile fits the cluster
     assert plan.launches()["cluster_sort"] == 1 + max(t - s, 0)
+    if t <= s:
+        assert plan.launches() == {"bitonic_stage": 0, "cluster_sort": 1}
     assert plan.launches()["bitonic_stage"] == sum(
         kl - s for kl in range(s + 1, t + 1))
     assert all(0 <= st.code < 1 << 27 for st in plan.steps)
@@ -313,6 +321,16 @@ def cluster_tile():
     v0 = rng.integers(0x7FFFFFFE, 0x80000002, n, dtype=np.uint64).astype(
         np.uint32)
     return keys, vals, v0
+
+
+@pytest.mark.parametrize("kind", ["uniform", "all_equal", "presorted",
+                                  "reversed", "distinct97"])
+def test_sort_tiles_cluster_tile_matches_jax(kind):
+    # keys alone at the paths' 2^15-row tile (one CTA a tile on the card)
+    k = _keys(kind, 2 * CLUSTER_ROWS * 128, np.random.default_rng(24))
+    want = np.asarray(J.sort_tiles(jnp.asarray(k), tile_rows=CLUSTER_ROWS))
+    got = to_numpy(T.sort_tiles(from_numpy(k), tile_rows=CLUSTER_ROWS))
+    np.testing.assert_array_equal(got, want)
 
 
 def test_sort_tiles_kv_cluster_tile_matches_jax(cluster_tile):
