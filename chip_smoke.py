@@ -77,7 +77,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    bits). Then the query kernels: compaction of 1-4 streams and the
    fill-forward under masks of density 0, 0.01, 0.25 and 1 and one from
    each key family (a compaction only on its defined first count rows),
-   compaction of 9 and 16 streams, the fill-forward at a ragged n, and
+   compaction of 9 and 16 streams; the compaction's any-n entry at ragged
+   n under each mask and at n = 1 - 4097, a mask and streams at 4-byte
+   offsets (not 16-byte aligned), and ops/filter.py filter_kv at 2^22 +
+   12345 rows against boolean indexing; the fill-forward at a ragged n, and
    probes (semi and not) of a 1024-key table in shared memory, a
    50,000-key table past it, and one with duplicate keys. Then
    the query entry points phase 3 does not run (bench/query.py
@@ -153,7 +156,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    same cumsum; block_prefix_sums at 2^27;
    transpose_tiled at (16384, 256) and (8192, 16384); the compaction of
    filter_kv (2 streams) and of the vmem hash_join (3 streams) at 10^8
-   rows (beside torch.stack(streams, 1)[mask]), the fill-forward of
+   rows (beside torch.stack(streams, 1)[mask]; its bound counts each
+   stream's 32-byte sectors that hold a selected row, all of which a
+   kernel must read), the fill-forward of
    hash_join's 1.1 * 10^8 sorted rows, the probe of the vmem join's 1024-key table by 10^8 keys (and semi, beside
    torch.isin), and the 50,000-key table's probe; their bounds count the
    bytes the function needs from that run's data (a compaction's selected
@@ -217,6 +222,7 @@ def main() -> int:
     from lsdradixsort_tpu_torch.kernels import tile_sort as TS
     from lsdradixsort_tpu_torch.kernels import transpose as TR
     from lsdradixsort_tpu_torch.ops import bigsort as B
+    from lsdradixsort_tpu_torch.ops.filter import filter_kv
     from lsdradixsort_tpu_torch.ops.sort import (_merge_sort_multi,
                                                  merge_sort_keys,
                                                  merge_sort_with_ranks, sort,
@@ -948,7 +954,50 @@ def main() -> int:
                     [o[:cnt] for o in CP.compact_stream_multi_plain(
                         masks[mname], many[:k])])
     del many
+    # the any-n entry (ops/filter.py compact's): ragged n under every mask
+    # and short n; a mask and streams at 4-byte offsets, through it and
+    # through the public wrapper; and filter_kv past a tile multiple
     ragged = n2 - 12345
+    x, y = random_keys(n2, 1, dev), iota
+    for mname, m in {**masks, "key bit 0": (x.view(torch.int32) & 1) == 1
+                     }.items():
+        for rows in (ragged, 1, 100, 2047, 4097):
+            sel, streams = m[:rows], [x[:rows], y[:rows], pay[:rows]]
+            count, outs = CP._compact_rows(sel, streams)
+            cnt = int(sel.sum())
+            if int(count) != cnt:
+                raise AssertionError(f"_compact_rows {mname} n={rows}: "
+                                     f"count {int(count)}, want {cnt}")
+            compare("compact_stream_multi", f"any n {mname} n={rows}",
+                    [o[:cnt] for o in outs],
+                    [o[:cnt] for o in CP._plain(sel, streams)])
+    m = masks["p=0.25"]
+    for rows, shift in ((ragged, 4), (n2 - 2 * CP.TILE, 4), (ragged, 7)):
+        sel = m[shift:shift + rows]
+        streams = [x[1:1 + rows], y[3:3 + rows]]
+        cnt = int(sel.sum())
+        kernel = (CP._compact_rows(sel, streams)[1] if rows % CP.TILE
+                  else CP.compact_stream_multi(sel, streams))
+        compare("compact_stream_multi",
+                f"mask at byte {shift}, streams at words 1 and 3, n={rows}",
+                [o[:cnt] for o in kernel],
+                [o[:cnt] for o in CP._plain(sel, streams)])
+    fk = random_keys_bounded(n2 + 12345, 0, 1 << 20, 5, dev)
+    fv = random_keys(n2 + 12345, 6, dev)
+    got = filter_kv(fk, fv, 1 << 18, 1 << 19)
+    fsel = ((fk.view(torch.int32) >= 1 << 18)
+            & (fk.view(torch.int32) < 1 << 19))
+    cnt = int(fsel.sum())
+    if int(got[0]) != cnt:
+        raise AssertionError(f"filter_kv n={n2 + 12345}: count "
+                             f"{int(got[0])}, want {cnt}")
+    compare("compact_stream_multi", f"filter_kv n={n2 + 12345}",
+            [g[:cnt] for g in got[1:]],
+            [fk.view(torch.int32)[fsel].view(torch.uint32),
+             fv.view(torch.int32)[fsel].view(torch.uint32)])
+    del x, y, fk, fv, fsel, got
+    print(f"phase 2: compaction at any n (ragged, 1-4097), unaligned mask "
+          f"and streams, filter_kv at n={n2 + 12345}: bit exact")
     compare("fill_forward_last", f"n={ragged}",
             list(FF.fill_forward_last(masks["p=0.01"][:ragged],
                                       pay[:ragged], iota[:ragged])),
@@ -1603,9 +1652,11 @@ def main() -> int:
     # (and, semi, of filter_in_set's), with the library call beside each
     # where one exists (boolean indexing of one stream; isin for semi).
     # A bound counts the bytes the function needs from this run's data:
-    # a compaction reads each mask byte and only the selected rows of its
-    # streams; the fill-forward reads each flag, key and val only at the
-    # flagged rows, and writes 12 bytes a row
+    # a compaction reads each mask byte and, of each stream, every 32-byte
+    # sector that holds a selected row (device memory moves whole
+    # sectors), and writes the selected rows; the fill-forward reads each
+    # flag, key and val only at the flagged rows, and writes 12 bytes a
+    # row
     qn, qnb = qdata["n"], qdata["nb"]
     npad = -(-qn // CP.TILE) * CP.TILE
 
@@ -1613,17 +1664,31 @@ def main() -> int:
         return torch.cat([x.view(torch.int32), x.new_zeros(
             npad - x.shape[0]).view(torch.int32)]).view(x.dtype)
 
+    def compaction_bytes(sel, k):
+        """(nbytes, reads) of a compaction of k aligned u32 streams: the
+        mask, each stream's sectors that hold a selected row (8 rows a
+        sector) read, its selected rows written."""
+        cnt = int(sel.sum())
+        sectors = k * int(sel.view(-1, 8).any(1).sum())
+        return (sel.shape[0] + 32 * sectors + 4 * k * cnt,
+                sel.shape[0] + 32 * sectors - 4 * k * cnt)
+
     qk = u32_to_i64(qdata["keys"])
     sel = padded((qk >= Q.LO) & (qk < Q.HI))
     del qk
     cnt = int(sel.sum())
     fstreams = [padded(qdata["keys"]), padded(qdata["vals"])]
+    nbytes, reads = compaction_bytes(sel, 2)
+    print(f"compaction bounds: sector-aware {bound_ms(nbytes, reads):.3f} "
+          f"ms ({nbytes} bytes, {reads} read only); the selected rows "
+          f"alone (the earlier yardstick) "
+          f"{bound_ms(npad + 16 * cnt, npad):.3f} ms ({card})")
     check_and_time("compact_stream_multi", "filter_kv: 2 streams",
                    CP.compact_stream_multi, CP.compact_stream_multi_plain,
-                   (sel, fstreams), npad + 2 * 8 * cnt, list,
+                   (sel, fstreams), nbytes, list,
                    lambda: torch.stack([f.view(torch.int32)
                                         for f in fstreams], 1)[sel],
-                   npad, cnt, reads=npad)
+                   npad, cnt, reads=reads)
     small = HT.build_table(qdata["bkeys_s"], qdata["bvals_s"],
                            HT.plan_rows(Q.SMALL_BUILD))
     probes = qdata["pkeys_s"]
@@ -1645,12 +1710,13 @@ def main() -> int:
     jcnt = int(jsel.sum())
     jstreams = [padded(probes), fstreams[1], padded(bval)]
     del match, bval
+    nbytes, reads = compaction_bytes(jsel, 3)
     check_and_time("compact_stream_multi", "hash_join vmem: 3 streams",
                    CP.compact_stream_multi, CP.compact_stream_multi_plain,
-                   (jsel, jstreams), npad + 2 * 12 * jcnt, list,
+                   (jsel, jstreams), nbytes, list,
                    lambda: torch.stack([j.view(torch.int32)
                                         for j in jstreams], 1)[jsel],
-                   npad, jcnt, reads=npad)
+                   npad, jcnt, reads=reads)
     del sel, fstreams, jsel, jstreams
     jkeys = torch.cat([qdata["bkeys"], qdata["pkeys"]])
     jperm = torch.sort(u32_to_i64(jkeys), stable=True).indices

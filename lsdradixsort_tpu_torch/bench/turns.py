@@ -1,7 +1,8 @@
-"""Time this checkout's tile sorts and histograms in turns with another
-checkout's, on one card.
+"""Time this checkout's tile sorts, histograms and compactions in turns
+with another checkout's, on one card.
 
     python -m lsdradixsort_tpu_torch.bench.turns OTHER [--out FILE]
+        [--only TEXT]
 
 OTHER is the root of another checkout of the repo (an earlier commit
 unpacked with `git archive` into a gitignored directory). Each turn is a
@@ -15,13 +16,18 @@ Cases, on uniform keys made here from seeds (and all-equal keys): the
 keys-only, key+pos and key+pos+payload tile sorts of 2^27 rows at the
 2^15-row tile; the histograms of 2^27 uniform and all-equal keys at
 r = 8, 4, 2, 1, block 2^13; the flagship's histogram of 2^30 keys at
-r = 4, block 512. Each case's time is the median of 5 CUDA-event timings
-after a warm-up. Prints one line a case; --out writes every turn's times
-as JSON.
+r = 4, block 512; the compaction (`compact_stream_multi`) of the query
+path's 10^8 rows padded to a multiple of 2^15 under random masks of
+density 0.25 (2, 3, 9 and 16 streams), 1, 0.01 and 0 (2 streams), its
+output hashed on the defined rows only. Each case's time is the median of
+5 CUDA-event timings after a warm-up. Prints one line a case; --out
+writes every turn's times as JSON; --only runs the cases whose names
+hold TEXT.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import json
 import os
@@ -33,12 +39,13 @@ from pathlib import Path
 ITERS = 5
 
 
-def worker() -> dict:
-    """One turn: the cases on the package found on sys.path; returns
-    {case: {"ms", "hash"}} with the package's path."""
+def worker(only: str) -> dict:
+    """One turn: the cases whose names hold `only`, on the package found
+    on sys.path; returns {case: {"ms", "hash"}} with the package's path."""
     import torch
 
     import lsdradixsort_tpu_torch as pkg
+    from lsdradixsort_tpu_torch.kernels import compaction as CP
     from lsdradixsort_tpu_torch.kernels import histogram as H
     from lsdradixsort_tpu_torch.kernels import tile_sort as TS
 
@@ -74,28 +81,60 @@ def worker() -> dict:
                 stack[:0] = list(x)
         return h.hexdigest()
 
-    n = 1 << 27
-    keys = keys_of(n, 0)
-    iota = torch.arange(n, dtype=torch.int32, device=dev).view(torch.uint32)
-    pay = keys_of(n, 2)
-    same = torch.full((n,), 0x5EEDBEEF, dtype=torch.int32,
-                      device=dev).view(torch.uint32)
-    big = keys_of(1 << 30, 11)
+    # inputs, made at a case's first (untimed) call, so that --only makes
+    # only those its cases read
+    @functools.cache
+    def sort_data():
+        n = 1 << 27
+        return {"keys": keys_of(n, 0),
+                "iota": torch.arange(n, dtype=torch.int32,
+                                     device=dev).view(torch.uint32),
+                "pay": keys_of(n, 2),
+                "all-equal": torch.full((n,), 0x5EEDBEEF, dtype=torch.int32,
+                                        device=dev).view(torch.uint32),
+                "big": keys_of(1 << 30, 11)}
+
+    @functools.cache
+    def compaction_data(p):
+        g = torch.Generator(device=dev)
+        g.manual_seed(21)
+        m = torch.rand(npad, generator=g, device=dev) < p
+        return m, int(m.sum())
+
+    @functools.cache
+    def streams():
+        return [keys_of(npad, 20 + i) for i in range(16)]
+
+    def compacted(p, k):
+        m, cnt = compaction_data(p)
+        return [o[:cnt] for o in CP.compact_stream_multi(m, streams()[:k])]
+
     tile_rows = (1 << 15) // TS.LANES
+    npad = -(-100_000_000 // CP.TILE) * CP.TILE
+    d = sort_data
     cases = {
-        "sort_tiles keys n=2^27": lambda: TS.sort_tiles(keys, tile_rows),
+        "sort_tiles keys n=2^27":
+            lambda: TS.sort_tiles(d()["keys"], tile_rows),
         "sort_tiles_kv key+pos n=2^27":
-            lambda: TS.sort_tiles_kv(keys, iota, tile_rows),
+            lambda: TS.sort_tiles_kv(d()["keys"], d()["iota"], tile_rows),
         "sort_tiles_multi key+pos+payload n=2^27":
-            lambda: TS.sort_tiles_multi(keys, [iota, pay], tile_rows)}
-    for fam, x in (("uniform", keys), ("all-equal", same)):
+            lambda: TS.sort_tiles_multi(d()["keys"], [d()["iota"],
+                                                      d()["pay"]],
+                                        tile_rows)}
+    for fam in ("uniform", "all-equal"):
         for r in (8, 4, 2, 1):
             cases[f"histogram {fam} r={r} block=2^13 n=2^27"] = (
-                lambda x=x, r=r: H.block_digit_histograms(x, r, 0, 1 << 13))
+                lambda fam=fam, r=r: H.block_digit_histograms(
+                    d()["keys" if fam == "uniform" else fam], r, 0, 1 << 13))
     cases["histogram uniform r=4 block=512 n=2^30"] = (
-        lambda: H.block_digit_histograms(big, 4, 0, 512))
+        lambda: H.block_digit_histograms(d()["big"], 4, 0, 512))
+    for p, ks in ((0.25, (2, 3, 9, 16)), (1.0, (2,)), (0.01, (2,)),
+                  (0.0, (2,))):
+        for k in ks:
+            cases[f"compact_stream_multi p={p} streams={k} n={npad}"] = (
+                lambda p=p, k=k: compacted(p, k))
     res = {name: {"ms": median_ms(fn), "hash": digest(fn())}
-           for name, fn in cases.items()}
+           for name, fn in cases.items() if only in name}
     return {"package": str(Path(pkg.__file__).resolve().parent),
             "cases": res}
 
@@ -115,6 +154,8 @@ def main(argv=None) -> int:
     ap.add_argument("other", type=Path, help="root of the other checkout")
     ap.add_argument("--out", type=Path, default=None,
                     help="write every turn's times here as JSON")
+    ap.add_argument("--only", default="",
+                    help="run only the cases whose names hold this text")
     args = ap.parse_args(argv)
     this = Path(__file__).resolve().parents[2]
     other = args.other.resolve()
@@ -122,7 +163,8 @@ def main(argv=None) -> int:
     for label, root in (("other", other), ("this", this), ("this", this),
                         ("other", other)):
         proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--worker"],
+            [sys.executable, str(Path(__file__).resolve()), "--worker",
+             args.only],
             cwd=root, env={**os.environ, "PYTHONPATH": str(root)},
             capture_output=True, text=True, check=False)
         if proc.returncode != 0:
@@ -155,10 +197,10 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--worker"]:
+    if sys.argv[1:2] == ["--worker"]:
         # import the package of the checkout this turn runs in (cwd and
         # PYTHONPATH), not this file's own
         sys.path.pop(0)
-        print(json.dumps(worker()))
+        print(json.dumps(worker(sys.argv[2])))
         sys.exit(0)
     sys.exit(main())

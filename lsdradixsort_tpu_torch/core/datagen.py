@@ -26,11 +26,18 @@ def _generator(seed: int, device) -> torch.Generator:
 
 def random_keys(n: int, seed: int = 0, device="cuda",
                 dtype=torch.uint32) -> torch.Tensor:
-    """Uniform random 32-bit keys over the full range of the bits
-    (uint32, int32 or float32 bit patterns), generated on `device`."""
-    bits = torch.randint(-(1 << 31), 1 << 31, (n,), dtype=torch.int32,
+    """n uniform random keys over the full range of the dtype's bits (1,
+    2, 4 or 8 bytes: uint32, int32 or float32 bit patterns, uint8, ...),
+    generated on `device`. A dtype in the third place is taken as the
+    dtype, as in the JAX package's `random_keys(n, seed, dtype)`."""
+    if isinstance(device, torch.dtype):
+        device, dtype = ("cuda" if isinstance(dtype, torch.dtype)
+                         else dtype), device
+    size = torch.empty((), dtype=dtype).element_size()
+    words = -(-n * size // 4)
+    bits = torch.randint(-(1 << 31), 1 << 31, (words,), dtype=torch.int32,
                          device=device, generator=_generator(seed, device))
-    return bits.view(dtype)
+    return bits.view(torch.uint8)[:n * size].view(dtype)
 
 
 def random_kv(n: int, seed: int = 0, device="cuda"):

@@ -32,6 +32,7 @@ def card_label() -> str:
 class Timing:
     seconds: float          # median per-call device time
     iters: int              # timed runs the median is taken over
+    calls_per_iter: int = 1
 
     @property
     def ms(self) -> float:

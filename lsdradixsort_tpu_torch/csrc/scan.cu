@@ -20,13 +20,12 @@
 //    at a time, backing off while one is not ready: it sums aggregates
 //    back to the nearest CTA that has published its inclusive prefix,
 //    publishes its own inclusive prefix, and the CTA writes its words plus
-//    that exclusive prefix. A status word is 64 bits, a 2-bit
-//    flag (0 not ready, 1 aggregate, 2 inclusive prefix) above the 32-bit
-//    value, written with st.release.gpu and read with ld.acquire.gpu. The
-//    status words and the ticket live in scratch that the caller keeps
-//    for the stream: the last CTA to finish clears them for the next
-//    launch, so a scan is one launch and no memset: one read and one write
-//    of the data, against the TPU's one sweep.
+//    that exclusive prefix. The status words and the ticket (the
+//    look-back of single_pass.cuh, shared with compaction.cu) live in
+//    scratch that the caller keeps for the stream: the last CTA to finish
+//    clears them for the next launch, so a scan is one launch and no
+//    memset: one read and one write of the data, against the TPU's one
+//    sweep.
 //  * seg_scan: a CTA scans kTile words at a time in shared memory
 //    (16 a thread, warp shuffles across a warp, one warp across the
 //    warps), exclusive within segments of `seg` words: several whole
@@ -78,6 +77,8 @@
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "single_pass.cuh"
 
 namespace {
 
@@ -262,34 +263,6 @@ cudaError_t launch_seg_scan_regs(const uint32_t* x, uint32_t* out,
   return cudaGetLastError();
 }
 
-// Makes `device` current; returns the device that was (to restore).
-cudaError_t enter_device(int device, int* prev) {
-  *prev = device;
-  cudaError_t err = cudaGetDevice(prev);
-  if (err == cudaSuccess && *prev != device) err = cudaSetDevice(device);
-  return err;
-}
-
-// Status words of scan_lookback: flag << 32 | value.
-constexpr unsigned long long kAggregate = 1ull << 32;
-constexpr unsigned long long kPrefix = 2ull << 32;
-
-__device__ __forceinline__ void store_release(unsigned long long* p,
-                                              unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned long long load_acquire(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
-               : "=l"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
 // Words a CTA of the single-pass scan covers: kSub scan tiles.
 constexpr int kSub = 2;
 constexpr int kLbTile = kSub * kTile;
@@ -339,11 +312,8 @@ __device__ __forceinline__ void store_tile(uint32_t* __restrict__ out,
   }
 }
 
-// One CTA of the single-pass scan: kSub scan tiles. status: the ticket
-// and the count of CTAs done (each as a u32 in a 64-bit word), then one
-// status word a CTA; all zero at launch, and all zero again when the last
-// CTA is done (it clears them), so the scratch serves the next launch on
-// the stream as it is.
+// One CTA of the single-pass scan: kSub scan tiles. status: the look-back
+// scratch of single_pass.cuh, all zero at launch and left all zero.
 __global__ void __launch_bounds__(kThreads)
 scan_lookback(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
               unsigned long long* status, long long n) {
@@ -353,10 +323,7 @@ scan_lookback(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
   __shared__ uint32_t s_excl;
   __shared__ bool s_last;
   const long long tiles = (n + kLbTile - 1) / kLbTile;
-  unsigned int* ticket = reinterpret_cast<unsigned int*>(status);
-  unsigned int* done = reinterpret_cast<unsigned int*>(status + 1);
-  unsigned long long* word = status + 2;
-  if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1u);
+  if (threadIdx.x == 0) s_tile = take_ticket(status);
   __syncthreads();
   const long long tile = s_tile;
   long long c0[kSub];
@@ -377,39 +344,11 @@ scan_lookback(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
     total += sub_total[u];
   }
   if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    uint32_t excl = 0;
-    if (tile == 0) {
-      if (lane == 0) store_release(word, kPrefix | total);
-    } else {
-      if (lane == 0) store_release(word + tile, kAggregate | total);
-      // walk back 32 CTAs at a time; lane l reads CTA j - l
-      for (long long j = tile - 1;; j -= 32) {
-        const long long t = j - lane;
-        unsigned long long w = t >= 0 ? load_acquire(word + t) : kPrefix;
-        unsigned backoff = 32;
-        while (__any_sync(0xffffffffu, (w >> 32) == 0)) {
-          __nanosleep(backoff);  // spare the status lines while they wait
-          if (backoff < 1024) backoff <<= 1;
-          if ((w >> 32) == 0) w = load_acquire(word + t);
-        }
-        const unsigned pmask = __ballot_sync(0xffffffffu, (w >> 32) == 2);
-        const int first = pmask ? __ffs(pmask) - 1 : 32;
-        uint32_t v = lane <= first ? static_cast<uint32_t>(w) : 0u;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) {
-          v += __shfl_xor_sync(0xffffffffu, v, o);
-        }
-        excl += v;
-        if (pmask) break;
-      }
-      if (lane == 0) store_release(word + tile, kPrefix | (excl + total));
-    }
-    if (lane == 0) {
+    if (threadIdx.x == 0) publish_aggregate(status, tile, total);
+    const uint32_t excl = walk_back(status, tile, total);
+    if (threadIdx.x == 0) {
       s_excl = excl;
-      // this CTA reads no status word any more; the last one clears them
-      __threadfence();
-      s_last = atomicAdd(done, 1u) == tiles - 1;
+      s_last = finish_tile(status, tiles);
     }
   }
   __syncthreads();
@@ -419,13 +358,7 @@ scan_lookback(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
     store_tile(out, c0[u], len[u], s[u], add);
     add += sub_total[u];
   }
-  if (s_last) {
-    for (long long t = threadIdx.x; t < tiles; t += kThreads) word[t] = 0;
-    if (threadIdx.x == 0) {
-      *ticket = 0;
-      *done = 0;
-    }
-  }
+  if (s_last) clear_status(status, tiles);
 }
 
 // --- exclusive_scan_hierarchical: one cooperative launch ------------------
@@ -444,26 +377,6 @@ constexpr int kHierBatch = 8;  // chunks warp-scanned together
 constexpr int kHierBlock = kHierChunks * kHierThreads * 4;  // words a round
 constexpr size_t kHierSmem = kHierBlock * sizeof(uint32_t);  // 128 KB
 static_assert(kHierChunks % kHierBatch == 0, "whole batches");
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-}
 
 // Start this thread's copies of the block at word `base` of x into its
 // slots of buf: 16 bytes a vector where x is aligned and the vector lies

@@ -12,7 +12,9 @@ and helpers in an anonymous namespace, and give each C entry point an
 ``lsd_`` name of its own.
 
 Every C entry point returns a ``cudaError_t``; `check` raises on a
-non-zero one. Pointers and the stream are passed as ``c_void_p``.
+non-zero one. Pointers and the stream are passed as ``c_void_p``. The
+single-pass kernels (``csrc/single_pass.cuh``) share one look-back
+scratch a stream, `lookback_status`.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -47,13 +51,18 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def build() -> Path:
     """Compile the library unless it is already built; return its path.
-    The file name carries a hash of the sources and flags. nvcc's output
+    The file name carries a hash of the sources, the headers they share
+    and the flags. nvcc's output
     (registers, shared memory, spills per kernel) is kept beside it in a
     ``.log`` file."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / f"lsd_kernels_{h.hexdigest()[:16]}.so"
@@ -127,3 +136,21 @@ def pointers(tensors) -> ctypes.Array:
     """A C array of device pointers (None for a null pointer)."""
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
     return (ctypes.c_void_p * max(len(ptrs), 1))(*ptrs)
+
+
+# (device index, stream handle) -> the look-back scratch of the single-pass
+# kernels (csrc/single_pass.cuh): int64 words, zeroed once and left zero by
+# every launch (its last CTA clears them), so launches in one stream's
+# order share it
+_STATUS: dict = {}
+
+
+def lookback_status(dev: int, stream: int, words: int) -> torch.Tensor:
+    """The look-back scratch of at least `words` words for launches on
+    `stream` of device `dev`."""
+    buf = _STATUS.get((dev, stream))
+    if buf is None or buf.shape[0] < words:
+        buf = torch.zeros(max(words, 1 << 10), dtype=torch.int64,
+                          device=torch.device("cuda", dev))
+        _STATUS[(dev, stream)] = buf
+    return buf

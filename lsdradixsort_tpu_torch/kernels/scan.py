@@ -146,21 +146,6 @@ def _lookback():
                                ctypes.c_int, ctypes.c_void_p])
 
 
-# (device index, stream handle) -> the single-pass scan's int64 status
-# scratch: zeroed once, and left zero by every launch (its last CTA clears
-# it), so launches in one stream's order share it
-_STATUS: dict = {}
-
-
-def _status(dev: int, stream: int, words: int) -> torch.Tensor:
-    buf = _STATUS.get((dev, stream))
-    if buf is None or buf.shape[0] < words:
-        buf = torch.zeros(max(words, 1 << 10), dtype=torch.int64,
-                          device=torch.device("cuda", dev))
-        _STATUS[(dev, stream)] = buf
-    return buf
-
-
 def exclusive_scan(x: torch.Tensor, block_rows: int = 512,
                    interpret: bool | None = None) -> torch.Tensor:
     """Exclusive prefix sum of a 1-D integer tensor (any length), mod 2^k,
@@ -179,7 +164,7 @@ def exclusive_scan(x: torch.Tensor, block_rows: int = 512,
     words, fn = _lookback()
     dev = x.device.index
     stream = torch._C._cuda_getCurrentRawStream(dev)
-    status = _status(dev, stream, -(-n // words) + 2)
+    status = _build.lookback_status(dev, stream, -(-n // words) + 2)
     _build.check(fn(x.data_ptr(), out.data_ptr(), status.data_ptr(), n, dev,
                     stream), "lsd_exclusive_scan")
     LAUNCHES["exclusive_scan"] += 1

@@ -6,9 +6,11 @@ count of selected rows and full-length columns whose first `count` rows
 are the selected rows in input order; the tail is unspecified.
 
   * `compact(mask, *arrays)`: from 2^15 rows up, every 32-bit column
-    moves as its uint32 bits (a view, never a conversion) through one
-    launch of the streaming compaction (kernels/compaction.py), padded
-    with mask-0 rows to a multiple of 2^15; below that, a stable
+    moves as its uint32 bits (a view, never a conversion) through the
+    streaming compaction (kernels/compaction.py `_compact_rows`, one
+    launch a group of 8 columns), which takes any n, so nothing is padded
+    (the JAX package pads to a multiple of 2^15 with mask-0 rows; the
+    defined rows are the same), and gives the count; below that, a stable
     `torch.sort` by the negated mask, as `lax.sort` is mapped elsewhere.
   * `filter_keys`, `filter_kv`: range selection lo <= key < hi.
   * `filter_in_set`, `filter_not_in_set`: IN / NOT IN a set of unique
@@ -25,8 +27,7 @@ import torch
 
 from lsdradixsort_tpu_torch.core.convert import (gather, i64_to_u32,
                                                  u32_to_i64)
-from lsdradixsort_tpu_torch.kernels.compaction import (TILE,
-                                                       compact_stream_multi,
+from lsdradixsort_tpu_torch.kernels.compaction import (TILE, _compact_rows,
                                                        selected)
 from lsdradixsort_tpu_torch.kernels.hash_table import (build_table,
                                                        plan_rows,
@@ -40,27 +41,18 @@ def _bits_u32(a: torch.Tensor) -> torch.Tensor:
     raise TypeError(f"compact moves 32-bit columns, got {a.dtype}")
 
 
-def _pad_zeros(a: torch.Tensor, npad: int) -> torch.Tensor:
-    if npad == a.shape[0]:
-        return a
-    return torch.cat([a, a.new_zeros(npad - a.shape[0])])
-
-
 def compact(mask: torch.Tensor, *arrays):
     """Stable compaction: rows where mask is set move to the front, in
     order. Returns (count, *compacted_arrays); rows past count are
     unspecified."""
     sel = selected(mask)
     n = sel.shape[0]
+    if arrays and n >= TILE:
+        count, packed = _compact_rows(sel, [_bits_u32(a) for a in arrays])
+        return (count, *(p.view(a.dtype) for p, a in zip(packed, arrays)))
     count = i64_to_u32(sel.sum())
     if not arrays:
         return (count,)
-    if n >= TILE:
-        npad = -(-n // TILE) * TILE
-        bits = [_pad_zeros(_bits_u32(a), npad) for a in arrays]
-        packed = compact_stream_multi(_pad_zeros(sel, npad), bits)
-        return (count, *(p[:n].view(a.dtype)
-                         for p, a in zip(packed, arrays)))
     order = torch.sort(sel.logical_not().to(torch.uint8), stable=True).indices
     return (count, *(gather(a, order) for a in arrays))
 

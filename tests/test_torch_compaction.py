@@ -5,7 +5,8 @@ above the 2^15-row stream tile that run it. Only the first sum(mask) rows
 of each output are defined; they must agree bit for bit.
 
 The kernel's JAX calls share one shape (2 tiles of 2^15 rows, 3 streams),
-so the interpreted kernel compiles once (a module-scoped fixture)."""
+so the interpreted kernel compiles once (a module-scoped fixture); the
+ragged `compact` cases pad to that shape too."""
 import importlib
 
 import jax.numpy as jnp
@@ -93,6 +94,65 @@ def test_filter_ops_above_the_stream_tile_match_jax():
         np.testing.assert_array_equal(to_numpy(g)[:c], x[sel])
 
 
+@pytest.fixture(scope="module")
+def ragged():
+    # ops/filter.py compact at n = N - 1234 with a u32, an i32 and an f32
+    # column: the JAX op pads to 2 tiles of 3 streams (the kernel shape of
+    # `cases`); the port compacts the n rows as they are
+    rng = np.random.default_rng(65)
+    n = N - 1234
+    cols = (rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32),
+            rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32),
+            rng.standard_normal(n).astype(np.float32))
+    out = {}
+    for kind in ("p0.01", "p0.5", "every7"):
+        m = _mask(kind, rng)[:n] == 1
+        want = JF.compact(jnp.asarray(m), *(jnp.asarray(c) for c in cols))
+        out[kind] = (m, [np.asarray(w) for w in want])
+    return cols, out
+
+
+@pytest.mark.parametrize("kind", ["p0.01", "p0.5", "every7"])
+def test_compact_at_a_ragged_n_matches_jax(ragged, kind):
+    cols, out = ragged
+    m, want = out[kind]
+    c = int(m.sum())
+    got = TF.compact(torch.from_numpy(m), *(from_numpy(x) for x in cols))
+    assert int(got[0]) == int(want[0]) == c
+    assert got[0].dtype == torch.uint32 and got[0].dim() == 0
+    for g, w, x in zip(got[1:], want[1:], cols, strict=True):
+        assert g.shape == x.shape and to_numpy(g).dtype == x.dtype
+        np.testing.assert_array_equal(to_numpy(g)[:c].view(np.uint32),
+                                      w[:c].view(np.uint32))
+        np.testing.assert_array_equal(to_numpy(g)[:c].view(np.uint32),
+                                      x[m].view(np.uint32))
+    # the any-n entry under it: the count, and the plain version's zero tail
+    count, outs = T._compact_rows(torch.from_numpy(m),
+                                  [from_numpy(cols[0]), from_numpy(cols[1])
+                                   .view(torch.uint32)])
+    assert int(count) == c and len(outs) == 2
+    for g, x in zip(outs, cols, strict=False):
+        assert g.dtype == torch.uint32 and g.shape == (m.shape[0],)
+        np.testing.assert_array_equal(to_numpy(g)[:c], x[m].view(np.uint32))
+        assert not to_numpy(g)[c:].any()
+
+
+def test_cuda_limits_match_the_source():
+    # the wrapper sizes the look-back scratch, the offsets and the stream
+    # groups from its own copies of csrc/compaction.cu's limits
+    import re
+    from pathlib import Path
+    src = (Path(T.__file__).resolve().parent.parent / "csrc"
+           / "compaction.cu").read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert consts["kThreads"] == T.CTA_THREADS
+    assert consts["kMaxStreams"] == T.MAX_STREAMS
+    rows = set(map(int, re.findall(r"tile_rows != (\d+) \* kThreads", src)))
+    assert {T.tile_rows(k) for k in range(1, T.MAX_STREAMS + 1)} == {
+        r * T.CTA_THREADS for r in rows}
+
+
 def test_n_must_be_a_tile_multiple():
     x = from_numpy(np.zeros(N - 128, np.uint32))
     with pytest.raises(ValueError, match="multiple"):
@@ -110,6 +170,7 @@ def test_counters_count_plain_calls_on_cpu():
     plain = dict(T.PLAIN_CALLS)
     x = from_numpy(np.ones(N, np.uint32))
     T.compact_stream_multi(x, [x, x])
+    T._compact_rows(x[:-5], [x[:-5]])
     assert T.LAUNCHES == launches
     assert T.PLAIN_CALLS["compact_stream_multi"] == (
-        plain["compact_stream_multi"] + 1)
+        plain["compact_stream_multi"] + 2)

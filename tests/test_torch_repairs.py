@@ -1,10 +1,12 @@
 """The port's API against the JAX package's where the two used to differ:
-the TPU knobs every kernel wrapper takes, the package's public names, the
-inputs the port once refused (more than 8 compaction streams, shuffles
-of any 4-byte dtype, scans of 8- and 16-bit integers, histograms past
-r = 12) and `sort_kv` payloads of any pytree. CPU tensors run the plain
+the TPU knobs every kernel wrapper takes, the package's public names,
+`random_keys`'s call shape and widths, `Timing`'s fields, the inputs the
+port once refused (more than 8 compaction streams, shuffles of any
+4-byte dtype, scans of 8- and 16-bit integers, histograms past r = 12)
+and `sort_kv` payloads of any pytree. CPU tensors run the plain
 versions; the JAX package runs on the CPU, its kernels in interpret mode.
 Outputs are integers and must agree bit for bit."""
+import dataclasses
 import importlib
 
 import jax
@@ -15,6 +17,8 @@ import torch
 
 import lsdradixsort_tpu as JP
 import lsdradixsort_tpu_torch as TP
+from lsdradixsort_tpu.core import datagen as JD
+from lsdradixsort_tpu.core import timing as JT
 from lsdradixsort_tpu.kernels import histogram as JH
 from lsdradixsort_tpu.kernels import scan as JS
 from lsdradixsort_tpu_torch.core import datagen, profiling, timing
@@ -144,6 +148,42 @@ def test_skewed_keys_contract(hot):
         assert cold.unique().numel() > 0.99 * cold.numel()
     k2 = datagen.skewed_keys(100, seed=4, hot_key=7, device="cpu")
     assert int((k2.view(torch.int32) == 7).sum()) > 50
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "uint32"])
+def test_random_keys_draws_n_keys_of_the_dtype(dtype):
+    # the JAX package draws n keys of the dtype's own width
+    want = JD.random_keys(8, 0, getattr(jnp, dtype))
+    got = datagen.random_keys(8, 0, "cpu", getattr(torch, dtype))
+    assert tuple(got.shape) == want.shape == (8,)
+    assert got.dtype == getattr(torch, dtype) and got.device.type == "cpu"
+    assert not torch.equal(got, datagen.random_keys(8, 1, "cpu",
+                                                    getattr(torch, dtype)))
+
+
+def test_random_keys_takes_the_jax_call_shape():
+    # random_keys(n, seed, dtype), as in the JAX package: the dtype in the
+    # third place, the keys on the card (or, with a fourth argument, on the
+    # device named there)
+    want = datagen.random_keys(16, 3, "cpu", torch.uint8)
+    got = datagen.random_keys(16, 3, torch.uint8, "cpu")
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+    if torch.cuda.is_available():
+        keys = datagen.random_keys(16, 3, torch.uint32)
+        assert keys.dtype == torch.uint32 and keys.device.type == "cuda"
+    else:                       # the card's generator, which is not here
+        with pytest.raises(RuntimeError):
+            datagen.random_keys(16, 3, torch.uint32)
+    assert datagen.random_keys(16, 3, "cpu").dtype == torch.uint32
+
+
+def test_timing_has_calls_per_iter():
+    t = timing.Timing(0.5, 10, 1)
+    assert t.calls_per_iter == 1
+    assert timing.Timing(0.5, 10).calls_per_iter == 1
+    assert [f.name for f in dataclasses.fields(timing.Timing)] == [
+        f.name for f in dataclasses.fields(JT.Timing)]
+    assert dataclasses.fields(timing.Timing)[2].default == 1
 
 
 @pytest.mark.parametrize("k", [8, 9, 16, 17])
