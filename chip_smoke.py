@@ -91,6 +91,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    against plain references at 2^22: sort64_with_ranks for u64, i64 and
    f64 keys, both directions, every strategy; sort_lex of 2, 3 and 7
    columns of mixed dtypes and directions; window_rank, each method.
+   Then the distributed operator set of parallel/ on worlds of processes
+   (entry.py `dryrun_multichip`, its six steps each verified): one rank
+   on NCCL, and 4 ranks on this one card over gloo (NCCL refuses two
+   ranks on one GPU; gloo stages the CUDA tensors' collectives through
+   the host), untimed.
 3. The main paths end to end. Merge: merge_sort_keys at 2^27 and
    2^27 - 12345 rows against torch.sort; merge_sort_with_ranks at 2^27
    with the stability check; the entry() step (sort_kv at 2^20) with u32
@@ -111,9 +116,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    against an independent plain reference, with its peak device memory
    and the kernel launches of one query; then window_rank of those 10^8
    rows (partition by the group keys, order by the filter keys), each
-   method against a plain reference (a path of its own). The benchmark
-   CLI (a path of its own): `bench/runner.py` run_suite("all", 24,
-   verify=True), every record of every suite verified against the numpy
+   method against a plain reference (a path of its own). The
+   distributed path at D = 1 on NCCL, a world of one (bench/dist.py
+   `dist_ops`, each op a path of its own): dist_sort and dist_sort_kv of
+   the 2^27 keys (positions as the payload) against merge_sort_keys and
+   merge_sort_with_ranks, dist_digit_histogram at r = 8, groups 0-3,
+   against torch.bincount, and on the query data dist_filter_kv,
+   dist_group_by_sum, dist_join, dist_join_multi, dist_top_k (k = 1024)
+   and dist_unique against their single-chip ops, each on its defined
+   part, then each timed beside its single-chip op (d1_dist_overhead =
+   dist ms / single-chip ms: the machinery's cost on one card, not
+   scaling). The benchmark CLI (a path of its own): `bench/runner.py`
+   run_suite("all", 24, verify=True), every record of every suite
+   (the dist suite on that world of one) verified against the numpy
    golden models.
 4. Launch counters: every kernel launched on its path in phase 3 (each
    path's counts set to 0 just before it: the sort kernels during the
@@ -129,7 +144,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    scan exactly 7 times in the runner; on every path one cluster_sort a
    tile-sort call (sort_tiles, sort_tiles_kv or sort_tiles_multi), and no
    bitonic_stage. shuffle_elem_runs has
-   no caller on any path, in either package: its launches are 0. Then one
+   no caller on any path, in either package: its launches are 0. Each
+   dist op's path launched its kernels (the tile sorts and merge passes
+   of its local sorts, the histogram, the compaction, the fill-forward,
+   the scan of the many-to-many join) and no plain version; dist_sort and
+   dist_sort_kv exactly 2 cluster_sort and 8 merge passes (two local
+   merge sorts of 2^27 rows), dist_join exactly one fill-forward. Then one
    composed sort at each r = 1, 2, 4, 8 launches block_prefix_sums and
    transpose_tiled 32 / r times each, with no plain call.
 5. Each kernel against its plain version at the main paths' shapes, bit
@@ -188,6 +208,7 @@ import time
 
 def main() -> int:
     import torch
+    import torch.distributed as dist
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing runs on the CPU",
               file=sys.stderr)
@@ -206,7 +227,9 @@ def main() -> int:
                                                      random_keys_bounded)
     from lsdradixsort_tpu_torch.core import timing
     from lsdradixsort_tpu_torch.core.timing import card_label
-    from lsdradixsort_tpu_torch.entry import entry
+    from lsdradixsort_tpu_torch.entry import dryrun_multichip, entry
+    from lsdradixsort_tpu_torch.bench import dist as BD
+    from lsdradixsort_tpu_torch.parallel import make_mesh
     from lsdradixsort_tpu_torch.bench import flagship as FL
     from lsdradixsort_tpu_torch.bench import query as Q
     from lsdradixsort_tpu_torch.bench import runner as RN
@@ -1138,6 +1161,17 @@ def main() -> int:
     print(f"phase 2: window_rank row_number/rank/dense_rank, both "
           f"directions, n={n2}: verified")
     del wpart, worder, lex_cols
+
+    # the distributed operator set on worlds of processes, every step
+    # verified: one rank on NCCL, and 4 ranks on this one card over gloo
+    # (NCCL refuses two ranks on one GPU; gloo stages the collectives of
+    # CUDA tensors through the host), the kernels built above
+    t_dry = time.perf_counter()
+    dryrun_multichip(1)
+    dryrun_multichip(4, backend="gloo", device="cuda:0")
+    print(f"phase 2: dryrun_multichip(1) on NCCL and dryrun_multichip(4) "
+          f"over gloo on cuda:0: every step verified, in "
+          f"{time.perf_counter() - t_dry:.1f} s")
     phase_done(2)
 
     # ---- 3. main paths end to end -----------------------------------------
@@ -1293,6 +1327,33 @@ def main() -> int:
     print(f"phase 3: window_rank row_number/rank/dense_rank n={qdata['n']} "
           f"(partition by group keys, order by filter keys): verified")
 
+    # the distributed path at D = 1 on NCCL, a world of one that the
+    # bench runner's dist suite below reuses: each dist op of parallel/ on
+    # the 2^27 keys and the query data, its launches counted (a path of
+    # its own each), held on its defined part against its single-chip op
+    # on the same data, then both timed; the ratio is the dist machinery's
+    # overhead on one card, not scaling
+    mesh = make_mesh()
+    dist_launches, dist_rows = {}, []
+    for op in BD.dist_ops(mesh, keys, qdata):
+        reset_counts()
+        got = op.run()
+        torch.cuda.synchronize()
+        dist_launches[op.name] = read_counts()
+        op.check(got, op.single())
+        del got
+        t_d, t_s = time_fn(op.run), time_fn(op.single)
+        dist_rows.append({"op": op.name, "single": op.single_name,
+                          "devices": mesh.size, "ms": t_d.ms,
+                          "single_ms": t_s.ms,
+                          "d1_dist_overhead": t_d.ms / t_s.ms})
+        used = {k: v for k, v in dist_launches[op.name][0].items() if v}
+        print(f"phase 3: {op.name} D={mesh.size}: verified against "
+              f"{op.single_name}; {t_d.ms:.3f} ms, single-chip "
+              f"{t_s.ms:.3f} ms, d1_dist_overhead "
+              f"{t_d.ms / t_s.ms:.3f}; launches {used} ({card})")
+    print(f"phase 3: dist {json.dumps(dist_rows)}")
+
     # the benchmark CLI (a path of its own): every suite of bench/runner.py
     # at n = 2^24 with --verify, against the numpy golden models
     reset_counts()
@@ -1342,6 +1403,22 @@ def main() -> int:
                           "exclusive_scan", "exclusive_scan_hierarchical")
                          + query_kernels),
     }
+    # each dist op's own path, the kernels it must launch
+    dist_need = {
+        "dist_sort": ("sort_tiles", "merge_pass_multi"),
+        "dist_sort_kv": ("sort_tiles_multi", "merge_pass_multi"),
+        "dist_digit_histogram": ("block_digit_histograms",),
+        "dist_filter_kv": ("compact_stream_multi",),
+        "dist_group_by_sum": ("compact_stream_multi",),
+        "dist_join": merge_kernels + ("fill_forward_last",
+                                      "compact_stream_multi"),
+        "dist_join_multi": merge_kernels + ("fill_forward_last",
+                                            "exclusive_scan"),
+        "dist_top_k": ("block_digit_histograms",),
+        "dist_unique": ("compact_stream_multi",),
+    }
+    for op_name, need in dist_need.items():
+        paths[op_name] = (*dist_launches[op_name], need)
     for pname, (lc, pc, need) in paths.items():
         print(f"phase 4: {pname} path: kernel launches "
               f"{ {k: v for k, v in lc.items() if v} }; plain calls "
@@ -1369,6 +1446,18 @@ def main() -> int:
                          2 * 2 * FL.NRANGES),
              "bench runner": ("exclusive_scan_hierarchical",
                               runner_launches, 7)}
+    # at D = 1 a dist sort of 2^27 rows is two local merge sorts: two tile
+    # sorts (one cluster_sort each) and 2 * ceil(log8(2^27 / 2^15)) = 8
+    # merge passes; the join's fill-forward runs once
+    run, passes = 1 << 15, 0
+    while run < n:
+        run, passes = run * M.KWAY, passes + 2
+    for op_name in ("dist_sort", "dist_sort_kv"):
+        lc = dist_launches[op_name][0]
+        exact[f"{op_name} (cluster_sort)"] = ("cluster_sort", lc, 2)
+        exact[f"{op_name} (merge passes)"] = ("merge_pass_multi", lc, passes)
+    exact["dist_join"] = ("fill_forward_last",
+                          dist_launches["dist_join"][0], 1)
     for pname, (k, lc, want_n) in exact.items():
         print(f"phase 4: {pname} path: {k} launched {lc[k]} times "
               f"(expected {want_n})")
@@ -1899,8 +1988,9 @@ def main() -> int:
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": max_err[k], **rows[k]}
         for k, (src, rep) in sources.items()]}))
+    dist.destroy_process_group()
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

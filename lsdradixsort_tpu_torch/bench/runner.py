@@ -20,9 +20,10 @@ prints the card's name and power limit, and the JSON report carries them
 suites make their data on the card from `torch.Generator` seeds; only tests
 pass `device="cpu"` (with a host timer patched in).
 
-`dist` (distributed kv-sort, runner.py:574-627) is absent from `SUITES`
-until `parallel/` is ported (ROADMAP Queue A item 10). `--no-cache` is
-accepted and ignored: the port has no compilation cache to disable.
+`dist` runs the distributed kv-sort (parallel/) over the process group
+`make_mesh` finds or makes: a world of one on the card unless the CLI is
+started under torchrun. `--no-cache` is accepted and ignored: the port
+has no compilation cache to disable.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lsdradixsort_tpu_torch.core import datagen, roofline
 from lsdradixsort_tpu_torch.core.convert import iota_u32, to_numpy
@@ -479,7 +481,60 @@ def suite_query(n_log2: int, verify: bool, sweep: bool,
     return out
 
 
+def suite_dist(n_log2: int, verify: bool, sweep: bool,
+               device="cuda") -> list[Record]:
+    """Distributed kv-sort over the mesh's processes (north-star config
+    5): D = the mesh's size, each rank timing its own call. At D > 1 the
+    record carries the scaling efficiency against the one-device stable
+    sort with positions (`sort_with_ranks`); at D = 1 the ratio is the
+    dist machinery's overhead over that sort, not scaling, and is
+    labelled so. Every rank builds the same keys and verifies its own
+    shard. The JAX runner caps n at 2^22 when D = 1, for a TPU compile
+    helper's crash; the port has no such cap."""
+    from lsdradixsort_tpu_torch.ops.sort import sort_with_ranks
+    from lsdradixsort_tpu_torch.parallel import (dist_sort_kv, make_mesh,
+                                                 shard_1d)
+    mesh = (make_mesh() if torch.device(device).type == "cuda"
+            else make_mesh(backend="gloo", device=device))
+    d = mesh.size
+    n = 1 << n_log2
+    keys = datagen.random_keys(n, device=device)
+    sk = shard_1d(keys, mesh)
+    sv = shard_1d(iota_u32(n, device), mesh)
+    fn = lambda k, v: dist_sort_kv(k, v, mesh)
+    ver = None
+    if verify:
+        keys_np = to_numpy(keys)
+        perm = np.argsort(keys_np, kind="stable")
+        mine = slice(mesh.rank * (n // d), (mesh.rank + 1) * (n // d))
+
+        def ver():
+            ok, ov = fn(sk, sv)
+            check_arrays(to_numpy(ok), keys_np[perm][mine])
+            check_arrays(to_numpy(ov), perm[mine].astype(np.uint32))
+    out = [_bench("dist/sort_kv", {"n": n, "devices": d}, fn, (sk, sv), n,
+                  bytes_moved=16 * n, verify=ver)]
+    rec = out[0]
+    if rec is None:                 # budget-skipped
+        return out
+    # the one-device reference, as a field of the dist record
+    t1 = time_fn(sort_with_ranks, keys, iters=5)
+    ratio = t1.seconds / rec.device_ms * 1e3
+    if d > 1:
+        eff = ratio / d
+        rec.config["scaling_eff"] = round(eff, 4)
+        print(f"# scaling efficiency vs 1-device sort_with_ranks: "
+              f"{100 * eff:.1f}% at D={d}")
+    else:
+        rec.config["d1_dist_overhead"] = round(1.0 / ratio, 4)
+        print(f"# D=1: dist path costs {1.0 / ratio:.2f}x the local "
+              f"sort_with_ranks (machinery overhead, not scaling)")
+    return out
+
+
 SUITES: dict[str, Callable] = {
+    # dist first, as in the JAX runner
+    "dist": suite_dist,
     "sort": suite_sort,
     "tile_sort": suite_tile_sort,
     "shuffle": suite_shuffle,
@@ -559,6 +614,8 @@ def main(argv=None, device="cuda") -> int:
                 f.write(r.line() + "\n")
             for fl in failed:
                 f.write(f"FAILED {fl['suite']}: {fl['error']}\n")
+    if dist.is_initialized():       # the dist suite's world
+        dist.destroy_process_group()
     # automation keys on the exit code: any verify failure or crashed
     # suite is a nonzero exit
     bad_verify = [r for r in records if r.verified is False]

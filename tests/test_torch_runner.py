@@ -9,6 +9,7 @@ import json
 
 import pytest
 import torch
+import torch.distributed as dist
 
 from lsdradixsort_tpu.bench import runner as jax_runner
 from lsdradixsort_tpu.core import timing as jax_timing
@@ -23,9 +24,14 @@ def _host_timer(fn, *args, iters=5):
 
 @pytest.fixture
 def on_cpu(monkeypatch):
-    """The runner timed on the host clock, with a stub card label."""
+    """The runner timed on the host clock, with a stub card label; the
+    world of one that the dist suite makes in this process is torn down
+    after the test."""
     monkeypatch.setattr(runner, "time_fn", _host_timer)
     monkeypatch.setattr(runner, "card_label", lambda: "stub card, 0.00 W")
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("sweep", [False, True])
@@ -37,11 +43,13 @@ def test_suite_runs_and_verifies(on_cpu, suite, sweep):
     for rec in records:
         assert rec.verified is True, rec.line()
         assert rec.device_ms > 0
+    if suite == "dist":     # a world of one: the overhead, not scaling
+        assert records[0].config["devices"] == 1
+        assert records[0].config["d1_dist_overhead"] > 0
 
 
 def test_suites_and_record_match_the_jax_runner():
-    assert list(runner.SUITES) == [s for s in jax_runner.SUITES
-                                   if s != "dist"]
+    assert list(runner.SUITES) == list(jax_runner.SUITES)
     assert ([f.name for f in dataclasses.fields(runner.Record)]
             == [f.name for f in dataclasses.fields(jax_runner.Record)])
 

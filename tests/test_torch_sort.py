@@ -279,7 +279,15 @@ def test_port_imports_no_jax():
             "lsdradixsort_tpu_torch.kernels.fill_forward, "
             "lsdradixsort_tpu_torch.kernels.hash_table, "
             "lsdradixsort_tpu_torch.ops, "
-            "lsdradixsort_tpu_torch.bench.query; "
+            "lsdradixsort_tpu_torch.bench.query, "
+            "lsdradixsort_tpu_torch.parallel, "
+            "lsdradixsort_tpu_torch.parallel.mesh, "
+            "lsdradixsort_tpu_torch.parallel.dist_hist, "
+            "lsdradixsort_tpu_torch.parallel.dist_sort, "
+            "lsdradixsort_tpu_torch.parallel.dist_query, "
+            "lsdradixsort_tpu_torch.parallel.launch, "
+            "lsdradixsort_tpu_torch.bench.runner, "
+            "lsdradixsort_tpu_torch.bench.dist; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'lsdradixsort_tpu.')) or "
             "m == 'lsdradixsort_tpu']; print(bad); sys.exit(1 if bad else 0)")
