@@ -48,7 +48,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    The merge-path partition (merge_path_splits) and merge against their
    plain versions on all-equal, 97-distinct and uniform keys, with 1, 2,
    3 and 8 streams at every ncmp they allow, runs of 2^15, 1000 and 3
-   rows and a last group of 5 runs, and a tail of 0xFFFFFFFF padding.
+   rows and a last group of 5 runs, and a tail of 0xFFFFFFFF padding;
+   then the sampled partition's own edges: one key on 90 % of the rows,
+   all-equal keys (a tie wider than a span), 3 distinct keys and globally
+   presorted keys (boundaries on sample rows) at runs of 2^15 and 2^17
+   (a last group of 5) and at run 2^21 of 2^24 rows (two coarse levels),
+   ncmp 1-3; and for merge_runs_splits the hot key too, a run of 40 rows
+   (shorter than a sample stride) and a range of over 1,024 tiles.
    Then the scans at 2^22, 100000 and 131712 words of full-range u32
    (wraparound) and of i32, block_prefix_sums at blocks 128, 512 and
    2^13; exclusive_scan at n = 0, 1, a scan tile and a CTA's words, each
@@ -158,10 +164,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    there is one: the tile sorts at n = 2^27 (1, 2 and 3 streams) and
    every merge pass of the chain (run 2^15, 2^18, 2^21, 2^24), each fed
    the kernel's previous output, its partition (merge_path_splits) timed
-   on its own beside it (the pass's time includes it), and the same at
-   ncmp = 3 (hi, lo, position); merge_pass_runs on each range of the
-   2^30 chunked pass (2 streams, untrimmed runs), its partition timed on
-   its own beside it, beside a stable torch.sort of the 2^30 int64 (key,
+   on its own beside it (the pass's time includes it) and traced, each
+   of its launches' device time apart, and the same at ncmp = 3 (hi, lo,
+   position); merge_pass_runs on each range of the 2^30 chunked pass (2
+   streams, untrimmed runs), its partition timed and traced on its own
+   beside it, beside a stable torch.sort of the 2^30 int64 (key,
    position) words; the histogram of
    2^27 keys at each r, and of 2^27 all-equal keys at each r;
    exclusive_scan of each r's digit-major histogram (beside
@@ -229,6 +236,7 @@ def main() -> int:
     from lsdradixsort_tpu_torch.core.timing import card_label
     from lsdradixsort_tpu_torch.entry import dryrun_multichip, entry
     from lsdradixsort_tpu_torch.bench import dist as BD
+    from lsdradixsort_tpu_torch.bench.partition import trace_launches
     from lsdradixsort_tpu_torch.parallel import make_mesh
     from lsdradixsort_tpu_torch.bench import flagship as FL
     from lsdradixsort_tpu_torch.bench import query as Q
@@ -524,7 +532,43 @@ def main() -> int:
     for ncmp in (1, 2, 3):
         merge_case(f"0xFFFFFFFF-padded tail ncmp={ncmp}",
                    padded[:max(2, ncmp)] + [pay], 1 << 15, ncmp)
-    del fams, extra, padded
+    del fams, padded
+    # the sampled partition's own edges: one key on 90 % of the rows and
+    # all-equal keys (a tie wider than a whole span), 3 distinct keys,
+    # globally presorted keys (every boundary on a sample row), at runs of
+    # 2^15 and 2^17 rows (a short last group of 5 runs) and of 2^21 rows
+    # at 2^24 (three levels), ncmp 1-3
+    def edge_keys(fam, n, seed):
+        if fam == "hot90":
+            x = random_keys(n, seed, dev).view(torch.int32)
+            hot = random_keys_bounded(n, 0, 10, seed + 1, dev) != 0
+            return torch.where(hot, torch.full_like(x, -(1 << 31)),
+                               x).view(torch.uint32)
+        if fam == "few3":
+            return random_keys_bounded(n, 0, 3, seed, dev)
+        if fam == "presorted":
+            return iota_u32(n, dev)
+        return torch.full((n,), 0x5EEDBEEF, dtype=torch.int32,
+                          device=dev).view(torch.uint32)
+    for fam in ("hot90", "few3", "presorted", "all_equal"):
+        x = edge_keys(fam, n2, 71)
+        for run in (1 << 15, 1 << 17):
+            m = (8 + 5) * run if run == 1 << 17 else n2
+            for ns, ncmp in ((1, 1), (2, 2), (3, 3)):
+                merge_case(f"{fam} run={run} n={m} streams={ns} ncmp={ncmp}",
+                           [x[:m]] + [e[:m] for e in extra[:ns - 1]], run,
+                           ncmp)
+        del x
+    n24 = 1 << 24
+    deep = [random_keys(n24, 72 + i, dev) for i in range(2)]
+    for fam in ("hot90", "few3", "all_equal", "uniform"):
+        x = (random_keys(n24, 74, dev) if fam == "uniform"
+             else edge_keys(fam, n24, 75))
+        for ns, ncmp in ((1, 1), (2, 2), (3, 3)):
+            merge_case(f"{fam} run=2^21 n=2^24 streams={ns} ncmp={ncmp}",
+                       [x] + deep[:ns - 1], 1 << 21, ncmp)
+        del x
+    del extra, deep
     print(f"phase 2: merge-path partition and merge bit exact on the edge "
           f"cases (max_abs_err {max_err['merge_path_splits']}, "
           f"{max_err['merge_pass_multi']})")
@@ -598,28 +642,39 @@ def main() -> int:
     # ranges that start mid-window and hold no whole number of tiles,
     # runs shorter than a tile; partition and merge against their plain
     # versions
+    # (and, for the sampled partition: one key on 90 % of the rows, a run
+    # of 40 rows, shorter than a sample stride of the others, and a range
+    # of over 1,024 tiles, which takes three levels)
     rgen = torch.Generator(device=dev).manual_seed(45)
-    for fam, hi_ in (("all_equal", 1), ("few", 3), ("uniform", 1 << 32)):
+    for fam, hi_ in (("all_equal", 1), ("few", 3), ("uniform", 1 << 32),
+                     ("hot90", 0)):
         for S, ns, ncmp in ((2, 1, 1), (3, 3, 3), (8, 8, 2), (8, 3, 3),
-                            (3, 8, 1), (2, 2, 2)):
+                            (3, 8, 1), (2, 2, 2), (8, 2, 2)):
+            deep = (S, ns, ncmp) == (8, 2, 2)
             lens = [int(v) for v in torch.randint(
                 3000 if S == 8 else 200_000, 300_000, (S,), generator=rgen,
                 device=dev)]
             if S == 8:
                 lens[3] = 1000            # a run shorter than a tile
+            if deep:
+                lens = [600_000 + 1000 * s_ for s_ in range(S)]
+                lens[5] = 40
             streams = [[], [], []] + [[] for _ in range(ns - 3)]
             for s_, ln in enumerate(lens):
                 cols = [random_keys_bounded(ln, 0, hi_, 46 + s_ * 9 + i, dev)
-                        if hi_ < 1 << 32 else random_keys(ln, 46 + s_ * 9 + i,
-                                                          dev)
+                        if 0 < hi_ < 1 << 32 else random_keys(
+                            ln, 46 + s_ * 9 + i, dev)
                         for i in range(max(ns, 3))]
+                if fam == "hot90":
+                    cols[0] = edge_keys("hot90", ln, 46 + s_ * 9)
                 perm = row_order(cols[:ncmp], ln)
                 for i in range(ns):
                     streams[i].append(take_rows(cols[i], perm))
             streams = streams[:ns]
             total = sum(lens)
-            for lo_frac, count in ((0.0, total), (0.3, 3 * M.TILE + 1000),
-                                   (0.61, 40 * M.TILE + 17)):
+            for lo_frac, count in (((0.02, total),) if deep else (
+                    (0.0, total), (0.3, 3 * M.TILE + 1000),
+                    (0.61, 40 * M.TILE + 17))):
                 lo_rank = int(lo_frac * total)
                 count = min(count, total - lo_rank)
                 kw = dict(chunk0=0, nchunks=1, chunk_elems=count,
@@ -1544,6 +1599,18 @@ def main() -> int:
             "shape": f"{what} n={elems}"})
         return got
 
+    def trace_splits(what, fn, *args):
+        """The partition's launches apart: the device ms of each launch of
+        one traced call (bench/partition.py `trace_launches`)."""
+        launches = trace_launches(lambda: fn(*args))
+        names = [k.replace("(anonymous namespace)::", "")
+                 .replace("void ", "").split("(")[0] for k, _ in launches]
+        parts = ", ".join(f"{k} {ms:.4f}"
+                          for k, (_, ms) in zip(names, launches))
+        print(f"trace merge_path_splits [{what}]: {len(launches)} launches, "
+              f"{sum(ms for _, ms in launches):.4f} ms device: {parts} "
+              f"({card})")
+
     def flipped(x):
         return x.view(torch.int32) ^ -(1 << 31)
 
@@ -1590,6 +1657,8 @@ def main() -> int:
                 "merge_path_splits", f"{what} run=2^{run.bit_length() - 1}",
                 M.merge_path_splits, M.merge_path_splits_plain,
                 (streams[0], streams[1:2], run), splits_bytes(run), as_u32)
+            trace_splits(f"{what} run=2^{run.bit_length() - 1}",
+                         M.merge_path_splits, streams[0], streams[1:2], run)
             streams = check_and_time(
                 "merge_pass_multi",
                 f"{what} run=2^{run.bit_length() - 1}", M.merge_pass_multi,
@@ -1612,6 +1681,8 @@ def main() -> int:
             lambda k, v, r: M.merge_path_splits(k, v, r, ncmp=3),
             lambda k, v, r: M.merge_path_splits_plain(k, v, r, ncmp=3),
             (streams[0], streams[1:3], run), splits_bytes(run), as_u32)
+        trace_splits(f"hi+lo+pos ncmp=3 run=2^{run.bit_length() - 1}",
+                     M.merge_path_splits, streams[0], streams[1:3], run, 3)
         streams = check_and_time(
             "merge_pass_multi",
             f"hi+lo+pos ncmp=3 run=2^{run.bit_length() - 1}",
@@ -1925,6 +1996,8 @@ def main() -> int:
                                                                **part),
             (runs, tab), 4 * M.KWAY * (-(-(n30 // 2) // M.TILE) + 1), as_u32,
             elems=n30 // 2)
+        trace_splits(f"2^30 pass, range {ri} of 2",
+                     lambda: M.merge_runs_splits(runs, tab, **part))
         check_and_time(
             "merge_pass_runs", f"2^30 pass, range {ri} of 2, 2 streams",
             lambda rs, t, kw=kw: M.merge_pass_runs(rs, t, **kw),

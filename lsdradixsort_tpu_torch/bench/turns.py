@@ -1,5 +1,5 @@
-"""Time this checkout's tile sorts, histograms and compactions in turns
-with another checkout's, on one card.
+"""Time this checkout's tile sorts, histograms, compactions, merge-path
+partitions and merge sorts in turns with another checkout's, on one card.
 
     python -m lsdradixsort_tpu_torch.bench.turns OTHER [--out FILE]
         [--only TEXT]
@@ -19,8 +19,16 @@ r = 8, 4, 2, 1, block 2^13; the flagship's histogram of 2^30 keys at
 r = 4, block 512; the compaction (`compact_stream_multi`) of the query
 path's 10^8 rows padded to a multiple of 2^15 under random masks of
 density 0.25 (2, 3, 9 and 16 streams), 1, 0.01 and 0 (2 streams), its
-output hashed on the defined rows only. Each case's time is the median of
-5 CUDA-event timings after a warm-up. Prints one line a case; --out
+output hashed on the defined rows only; the merge-path partition
+(`merge_path_splits`) of the keys passes of 2^27 uniform keys (seed 0)
+sorted in runs of 2^15, 2^18, 2^21 and 2^24 rows, of those keys with
+their positions (key+pos) at runs of 2^15 and 2^24, and of the 64-bit
+chain's (hi, lo, position) at ncmp = 3 and run 2^15; the partition of one
+range of merge_runs_splits on each of the two ranges of the 2^30 pass (8
+runs of 2^27 sorted keys, seed 11, with their positions; tables of
+2^19-row chunks); merge_sort_keys and merge_sort_with_ranks of the 2^27
+keys. Each case's time is the median of 5 CUDA-event timings after a
+warm-up. Prints one line a case; --out
 writes every turn's times as JSON; --only runs the cases whose names
 hold TEXT.
 """
@@ -45,9 +53,13 @@ def worker(only: str) -> dict:
     import torch
 
     import lsdradixsort_tpu_torch as pkg
+    from lsdradixsort_tpu_torch.core.convert import row_order, take_rows
     from lsdradixsort_tpu_torch.kernels import compaction as CP
     from lsdradixsort_tpu_torch.kernels import histogram as H
+    from lsdradixsort_tpu_torch.kernels import merge as M
     from lsdradixsort_tpu_torch.kernels import tile_sort as TS
+    from lsdradixsort_tpu_torch.ops.sort import (merge_sort_keys,
+                                                 merge_sort_with_ranks)
 
     dev = torch.device("cuda")
 
@@ -109,6 +121,39 @@ def worker(only: str) -> dict:
         m, cnt = compaction_data(p)
         return [o[:cnt] for o in CP.compact_stream_multi(m, streams()[:k])]
 
+    # the merge passes' inputs: the streams sorted in runs of `run` rows
+    @functools.cache
+    def merge_runs(what, run):
+        n = 1 << 27
+        cols = {"keys": lambda: [d()["keys"]],
+                "key+pos": lambda: [d()["keys"], d()["iota"]],
+                "hi+lo+pos": lambda: [keys_of(n, 11), keys_of(n, 12),
+                                      d()["iota"]]}[what]()
+        perm = row_order(cols, run)
+        return [take_rows(c, perm) for c in cols]
+
+    @functools.cache
+    def pass_2_30():
+        seg = 1 << 27
+        runs = [[], []]
+        for s_ in range(8):
+            k, idx = torch.sort(d()["big"][s_ * seg:(s_ + 1) * seg]
+                                .view(torch.int32) ^ -(1 << 31), stable=True)
+            runs[0].append((k ^ -(1 << 31)).view(torch.uint32))
+            runs[1].append((idx + s_ * seg).to(torch.int32)
+                           .view(torch.uint32))
+        return runs, M.merge_tables_exact_runs(runs[0], 1 << 19)[0].cpu()
+
+    def splits(what, ncmp, run):
+        cols = merge_runs(what, run)
+        return M.merge_path_splits(cols[0], cols[1:], run, ncmp)
+
+    def range_splits(ri):
+        runs, tab = pass_2_30()
+        nch = (1 << 30) >> 19
+        return M.merge_runs_splits(runs, tab, chunk0=ri * nch // 2,
+                                   nchunks=nch // 2, chunk_elems=1 << 19)
+
     tile_rows = (1 << 15) // TS.LANES
     npad = -(-100_000_000 // CP.TILE) * CP.TILE
     d = sort_data
@@ -133,6 +178,19 @@ def worker(only: str) -> dict:
         for k in ks:
             cases[f"compact_stream_multi p={p} streams={k} n={npad}"] = (
                 lambda p=p, k=k: compacted(p, k))
+    for what, ncmp, runs in (("keys", 1, (15, 18, 21, 24)),
+                             ("key+pos", 2, (15, 24)),
+                             ("hi+lo+pos", 3, (15,))):
+        for lg in runs:
+            cases[f"merge_path_splits {what} ncmp={ncmp} run=2^{lg} "
+                  f"n=2^27"] = (lambda what=what, ncmp=ncmp, lg=lg:
+                                splits(what, ncmp, 1 << lg))
+    for ri in range(2):
+        cases[f"merge_runs_splits key+pos 2^30 pass range {ri} of 2"] = (
+            lambda ri=ri: range_splits(ri))
+    cases["merge_sort_keys n=2^27"] = lambda: merge_sort_keys(d()["keys"])
+    cases["merge_sort_with_ranks n=2^27"] = (
+        lambda: merge_sort_with_ranks(d()["keys"]))
     res = {name: {"ms": median_ms(fn), "hash": digest(fn())}
            for name, fn in cases.items() if only in name}
     return {"package": str(Path(pkg.__file__).resolve().parent),

@@ -25,18 +25,18 @@
 //     every boundary of the output, a tile's first rank r (and, for a
 //     range, its end), the exact co-rank in each run j of its merge: c_j(r),
 //     the number of run j's rows that the merged order puts before rank r.
-//     It replaces the TPU's sample-table prepass (merge_pass_tables). One
-//     warp a boundary, 4 lanes a run, keeps a bracket lo_j <= c_j <= hi_j,
-//     first what the windows allow, and bisects the widest: the row x in
-//     its middle is ranked in each other run by a 5-way search within that
-//     run's bracket (a clamped rank), and x lies before r iff the clamped
-//     ranks sum to less than r. Either way every bracket tightens to the
-//     clamped ranks, so the search is exact under any key distribution,
-//     ties included, and it never leaves the windows (a range's neighbours'
-//     rows there are excluded like any other); it ends when the lower or
-//     upper bounds sum to r. Two launches: every 32nd boundary (and a
-//     range's end) with brackets from the windows, then the rest with
-//     brackets from those (co-ranks only grow).
+//     It replaces the TPU's sample-table prepass (merge_pass_tables,
+//     lsdradixsort_tpu/kernels/merge.py:75), which only bounded each
+//     tile's rows for the VMEM buffers. Brackets around each co-rank
+//     come from samples of the runs ranked in shared memory, with a
+//     prediction of the co-rank; a warp stages a window of rows around
+//     the predictions, finds the cut there and checks it exact (the
+//     partition section below gives the argument). Launches top down:
+//     the coarse boundaries a CTA each (coarse_splits, sampling in rounds
+//     until the check holds), then a CTA a span of 32 tiles between two
+//     of them (merge_splits, the span sampled once for its 31
+//     boundaries; a boundary whose windows miss is bisected from its
+//     sampled brackets).
 //   * merge_tiles (lsd_merge_pass, lsd_merge_pass_runs): one CTA an output
 //     tile. Its windows [c_j(r), c_j(r + kTile)) together hold exactly the
 //     tile's rows, so shared memory is bounded whatever the skew (an
@@ -60,12 +60,22 @@
 // fewer CTAs an SM. A range's co-rank table is 32 bytes a tile, which the
 // caller allocates.
 //
-// What bounds them on the H100: device-memory bytes, one read and one
-// write of every stream. merge_tiles reaches them coalesced; its shared-
-// memory searches and the partition's dependent loads (bisection steps
-// times log5 of a bracket, per boundary) are what it adds. Neither pass
-// has a buffer capacity, so no key distribution can overflow it (the TPU
-// kernels' skew fallbacks have nothing to guard here).
+// What bounds them on the H100. merge_tiles: device-memory bytes, one
+// read and one write of every stream, coalesced; its shared-memory
+// searches are what it adds. The partition needs only the table (32 bytes
+// a tile), but placing a boundary reads rows scattered over 8 runs: a
+// search that probes device memory bracket by bracket (a warp a boundary
+// bisecting with 5-way searches: some 15 steps of 28 scattered probes
+// from a 16 Ki-row bracket) is bound by those sectors and its chains of
+// dependent loads. Here the span's samples (64 rows a run of a 32-tile
+// span, 1/256 of its rows) are shared by all its boundaries, the window
+// (32 rows a run, contiguous) is the one other read a boundary makes when
+// its prediction holds, and every search runs in shared memory; what
+// bounds it then is the issue of those searches (the samples' ranking and
+// the windows' cuts). Neither pass has a buffer capacity, so no key
+// distribution can overflow it (the TPU kernels' skew fallbacks have
+// nothing to guard here); a skewed distribution costs the partition extra
+// sampling rounds, never exactness.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -73,20 +83,11 @@ namespace {
 
 constexpr int kWay = 8;
 constexpr int kMaxStreams = 8;
-constexpr int kThreads = 256;
 
 // The compared words of a row (unused words stay 0).
 struct Row {
   uint32_t k, v0, v1;
 };
-
-template <int NC>
-__device__ __forceinline__ Row load_row(const uint32_t* __restrict__ k,
-                                        const uint32_t* __restrict__ v0,
-                                        const uint32_t* __restrict__ v1,
-                                        long long q) {
-  return Row{k[q], NC >= 2 ? v0[q] : 0u, NC >= 3 ? v1[q] : 0u};
-}
 
 // Is row y ordered before row x? Rows equal on the compared words count
 // as before when `or_equal` (y's run precedes x's run).
@@ -150,8 +151,10 @@ struct Groups {
   uint32_t* out[kMaxStreams];
   long long run_len, nruns, tiles_per_group, total_tiles;
 
-  __device__ long long boundaries() const { return total_tiles; }
   __device__ long long tiles() const { return total_tiles; }
+  __device__ Merge merge(long long g) const {
+    return merge_of(g * tiles_per_group);
+  }
   __device__ Merge merge_of(long long b) const {
     Merge m;
     const long long g = b / tiles_per_group;
@@ -187,8 +190,8 @@ struct Runs {
   long long sum_first, sum_end, lo_rank, count, ntiles;
   int nruns;
 
-  __device__ long long boundaries() const { return ntiles + 1; }
   __device__ long long tiles() const { return ntiles; }
+  __device__ Merge merge(long long) const { return merge_of(0); }
   __device__ Merge merge_of(long long) const {
     Merge m;
     m.b0 = 0;
@@ -211,26 +214,484 @@ struct Runs {
 };
 
 // --- the merge-path partition --------------------------------------------
+//
+// corank[b * 8 + j] = c_j(r_b), the rows of run j of boundary b's merge
+// that the merged order puts before its rank r_b (0 for j >= the merge's
+// run count). Everything below rests on one fact. Let brackets lo_j <= c_j
+// <= hi_j hold the true co-ranks of rank r. A row x of run j at position
+// q in [lo_j, hi_j) lies before r iff its clamped rank, q plus the sum
+// over the other runs m of its rank in m clamped to [lo_m, hi_m], is below
+// r: so a row is ranked against the other runs' brackets only, and a
+// bracket's rows suffice to place it.
+//
+// Sample sets. A set takes every step_j-th row of each bracket (at most M
+// a run) into shared memory and ranks each sample x against the other
+// runs' samples there: if a of run m's samples lie before x, its rank in
+// m lies between the (a - 1)-th sample's position + 1 and the a-th
+// sample's position, so its clamped rank lies in [gl, gu] (gl = gu where
+// every step is 1). gl and gu grow with the sample's position, so each
+// run's bracket for a rank r shrinks by two binary searches over its own
+// samples: after the last with gu < r (before r), up to the first with gl
+// >= r (not before r). gh, the clamped rank with each position in another
+// run interpolated between its two samples on the compared words, predicts
+// where each run's co-rank lies.
+//
+// The finish (a warp a boundary, 4 lanes a run): each run's window of
+// kWin rows around its prediction, inside its bracket, is staged in shared
+// memory, and each run's cut found there by a binary search over its
+// window (a row's clamped rank in the windows: its position plus its rank
+// in the 7 other windows, 2 a lane); the cut is checked: it is the true
+// one iff it holds r rows and every row left of it lies before every row
+// right of it (the rows beside the cut, where the brackets do not settle
+// them). A miss is tried once more with each window moved to the cut the
+// first found (a prediction a few rows off puts it at a window's edge).
+//
+// Launches, top down. coarse_splits, a level a launch: a CTA for each
+// boundary at a multiple of kFan^K tiles of a merge (and a range's stored
+// end), its brackets the windows; then one for each at a multiple of
+// kFan^k, k = K - 1 .. 1, its brackets the exact co-ranks of the kFan^(k
+// + 1)-tile span around it. A CTA works in rounds (cta_rounds): it
+// samples its brackets (kSpanM a run), warp 0 takes the brackets and
+// predictions the samples give and tries its windows, until the check
+// holds; a round shrinks the widest bracket to at most about half
+// whatever the keys (at most 14 of its samples straddle r), so the rounds
+// end. merge_splits: a CTA for each span of kFan tiles between two coarse
+// boundaries (whose exact co-ranks bracket exactly the span's rows),
+// sampled once (kSpanM a run: every 256th row of a uniform pass), then a
+// warp a boundary; a boundary whose windows miss twice (rare on uniform
+// keys; common where the keys jump inside a sample gap, as a query's
+// rejected rows, all on one key, make them) is finished by its warp with
+// the exact bisection of merge-path in device memory (bisect), from the
+// brackets its samples prove.
 
-// The clamped rank of x in rows [lo, hi) of the run at k, v0, v1: the
-// first position there whose row is not ordered before x (hi if all are).
-// The 4 lanes of a run's group probe 4 evenly spaced rows a step (a 5-way
-// search: a third of a binary search's dependent loads). Called by the
-// whole warp, each group with its own run (lo == hi for a group that has
-// nothing to search): the loop runs until every group is done, so the
-// groups' loads go out together rather than one group after another.
+constexpr int kSplitThreads = 256;
+constexpr int kSplitWarps = kSplitThreads / 32;
+constexpr int kSplitCtas = 4;  // resident a SM: at most 64 registers
+constexpr int kFan = 32;        // tiles a span, between coarse boundaries
+constexpr int kSpanM = 64;      // samples a run of a CTA's set
+constexpr int kWin = 32;        // window rows a run around a prediction
+constexpr int kWinRows = kWin + 2;  // with the rows on either side
+constexpr int kWinLoads = (kWinRows + 3) / 4;  // rows a lane stages
+constexpr int kCutSteps = 6;    // a binary search over kWin + 1 positions
+static_assert(kWin + 1 <= (1 << kCutSteps), "kCutSteps too few");
+constexpr int kMaxRounds = 64;  // sampling rounds: each halves a bracket
+// samples a thread loads
+constexpr int kSpanLoads = (kWay * kSpanM + kSplitThreads - 1) / kSplitThreads;
+
+// A sample set's brackets and layout, in shared memory: run j's samples
+// are [off[j], off[j + 1]), sample i at position lo[j] + i * step[j].
+struct SampleSet {
+  long long lo[kWay], hi[kWay], step[kWay];
+  int off[kWay + 1];
+  double end_rank;  // the sum of hi: the rank the brackets end at
+};
+
+// A sample set's rows and ranks in shared memory (cap samples).
 template <int NC>
-__device__ long long rank_in_run4(const uint32_t* __restrict__ k,
-                                  const uint32_t* __restrict__ v0,
-                                  const uint32_t* __restrict__ v1,
-                                  long long lo, long long hi, const Row& x,
+struct SampleRows {
+  uint32_t* w[3];
+  long long *gl, *gu;
+  double* gh;
+  __device__ Row row(int q) const {
+    return Row{w[0][q], NC >= 2 ? w[1][q] : 0u, NC >= 3 ? w[2][q] : 0u};
+  }
+};
+
+template <int NC>
+__host__ __device__ constexpr int sample_bytes(int cap) {
+  return cap * (3 * 8 + 4 * NC);
+}
+
+template <int NC>
+__device__ SampleRows<NC> carve(unsigned char* base, int cap) {
+  SampleRows<NC> s;
+  s.gh = reinterpret_cast<double*>(base);
+  s.gl = reinterpret_cast<long long*>(base + 8 * cap);
+  s.gu = s.gl + cap;
+  uint32_t* w = reinterpret_cast<uint32_t*>(s.gu + cap);
+  for (int t = 0; t < 3; ++t) s.w[t] = t < NC ? w + t * cap : nullptr;
+  return s;
+}
+
+// The value the predictions interpolate on: the first two compared words
+// as one 64-bit number (ties past them change no prediction much). Only
+// differences of it are taken, in integers: a double would lose the second
+// word under a tied first one (a query's rejected rows share one key).
+template <int NC>
+__device__ __forceinline__ unsigned long long xkey(const Row& x) {
+  return NC == 1 ? x.k : static_cast<unsigned long long>(x.k) << 32 | x.v0;
+}
+
+// Rows staged in shared memory: row i of a run's window.
+template <int NC>
+struct StagedRows {
+  const uint32_t *k, *v0, *v1;
+  __device__ Row at(int i) const {
+    return Row{k[i], NC >= 2 ? v0[i] : 0u, NC >= 3 ? v1[i] : 0u};
+  }
+};
+
+// The step and layout of a set whose brackets lo, hi are in place, at
+// most m samples a run (one thread).
+__device__ void finish_set(SampleSet& set, int m) {
+  int acc = 0;
+  double end = 0;
+  for (int j = 0; j < kWay; ++j) {
+    // a bracket lies in a run of at most 2^31 - 1 rows: 32-bit division
+    const unsigned w = static_cast<unsigned>(set.hi[j] - set.lo[j]);
+    const unsigned um = static_cast<unsigned>(m);
+    const unsigned step = w > um ? (w + um - 1) / um : 1u;
+    set.step[j] = step;
+    set.off[j] = acc;
+    acc += static_cast<int>((w + step - 1) / step);
+    end += static_cast<double>(set.hi[j]);
+  }
+  set.off[kWay] = acc;
+  set.end_rank = end;
+}
+
+__device__ __forceinline__ int run_of_sample(const SampleSet& set, int q) {
+  int j = 0;
+  while (set.off[j + 1] <= q) ++j;
+  return j;
+}
+
+// Thread `tid` of `nth` loads its samples' compared words (at most PER),
+// every load issued before any store.
+template <int NC, int PER, class P>
+__device__ void load_samples(const P& p, const Merge& m, const SampleSet& set,
+                             const SampleRows<NC>& s, int tid, int nth) {
+  const int total = set.off[kWay];
+  uint32_t v[PER][NC];
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    const int q = tid + e * nth;
+    if (q < total) {
+      const int j = run_of_sample(set, q);
+      const long long pos = set.lo[j] + (q - set.off[j]) * set.step[j];
+#pragma unroll
+      for (int t = 0; t < NC; ++t) v[e][t] = p.run(m, j, t)[pos];
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < PER; ++e) {
+    const int q = tid + e * nth;
+    if (q < total) {
+#pragma unroll
+      for (int t = 0; t < NC; ++t) s.w[t][q] = v[e][t];
+    }
+  }
+}
+
+// Sample x of run j (compared words, xkey xk) in run mr != j of a set:
+// the bounds of its clamped rank there, and its interpolated position.
+template <int NC>
+__device__ void term(const SampleSet& set, const SampleRows<NC>& s,
+                     const Row& x, unsigned long long xk, int j, int mr,
+                     long long& lower, long long& upper, double& est) {
+  const int o = set.off[mr], cnt = set.off[mr + 1] - o;
+  const long long lo = set.lo[mr], st = set.step[mr];
+  if (cnt == 0) {  // an empty bracket: the clamped rank is lo
+    lower = upper = lo;
+    est = static_cast<double>(lo);
+    return;
+  }
+  // a: run mr's samples before x (equal ones too if mr precedes j)
+  int a = 0, b = cnt;
+  while (a < b) {
+    const int mid = (a + b) >> 1;
+    if (before<NC>(s.row(o + mid), x, mr < j)) {
+      a = mid + 1;
+    } else {
+      b = mid;
+    }
+  }
+  lower = a == 0 ? lo : lo + (a - 1) * st + 1;
+  upper = a == cnt ? set.hi[mr] : lo + a * st;
+  if (a == 0) {
+    est = static_cast<double>(lo);
+  } else if (a == cnt) {
+    est = 0.5 * static_cast<double>(lower + upper);
+  } else {  // interpolated between the two samples around x
+    // x0 <= xk <= x1: sample a - 1 lies before x, sample a does not
+    const unsigned long long x0 = xkey<NC>(s.row(o + a - 1));
+    const unsigned long long x1 = xkey<NC>(s.row(o + a));
+    float f = x1 > x0 && xk >= x0
+                  ? __fdividef(static_cast<float>(xk - x0),
+                               static_cast<float>(x1 - x0))
+                  : 0.5f;
+    f = fminf(fmaxf(f, 0.0f), 1.0f);
+    est = static_cast<double>(lower - 1) + static_cast<double>(f * st);
+  }
+}
+
+// Thread `tid` of `nth` ranks its samples: gl, gu and gh.
+template <int NC>
+__device__ void rank_samples(const SampleSet& set, const SampleRows<NC>& s,
+                             int tid, int nth) {
+  for (int q = tid; q < set.off[kWay]; q += nth) {
+    const int j = run_of_sample(set, q);
+    const long long pos = set.lo[j] + (q - set.off[j]) * set.step[j];
+    const Row x = s.row(q);
+    const unsigned long long xk = xkey<NC>(x);
+    long long gl = pos, gu = pos;
+    double gh = static_cast<double>(pos);
+    for (int mr = 0; mr < kWay; ++mr) {
+      if (mr == j) continue;
+      long long lower, upper;
+      double est;
+      term<NC>(set, s, x, xk, j, mr, lower, upper, est);
+      gl += lower;
+      gu += upper;
+      gh += est;
+    }
+    s.gl[q] = gl;
+    s.gu[q] = gu;
+    s.gh[q] = gh;
+  }
+}
+
+// Run j's predicted co-rank for rank r, from a ranked set.
+template <int NC>
+__device__ double predict(const SampleSet& set, const SampleRows<NC>& s,
+                          int j, long long r) {
+  const int o = set.off[j], cnt = set.off[j + 1] - o;
+  const double rd = static_cast<double>(r);
+  int a = 0, b = cnt;  // the first sample predicted at or after r
+  while (a < b) {
+    const int mid = (a + b) >> 1;
+    if (s.gh[o + mid] < rd) a = mid + 1; else b = mid;
+  }
+  if (a == 0) return static_cast<double>(set.lo[j]);
+  const long long st = set.step[j];
+  const double x0 = static_cast<double>(set.lo[j] + (a - 1) * st);
+  const double g0 = s.gh[o + a - 1];
+  const double x1 = a < cnt ? static_cast<double>(set.lo[j] + a * st)
+                            : static_cast<double>(set.hi[j]);
+  const double g1 = a < cnt ? s.gh[o + a] : set.end_rank;
+  return g1 > g0 ? x0 + (x1 - x0) * (rd - g0) / (g1 - g0) : x0;
+}
+
+// Run j's bracket [lo, hi] for rank r from a ranked set.
+template <int NC>
+__device__ void bracket_of(const SampleSet& set, const SampleRows<NC>& s,
+                           int j, long long r, long long& lo,
+                           long long& hi) {
+  lo = set.lo[j];
+  hi = set.hi[j];
+  const int o = set.off[j], cnt = set.off[j + 1] - o;
+  const long long st = set.step[j];
+  int a = 0, b = cnt;  // the first sample with gu >= r
+  while (a < b) {
+    const int mid = (a + b) >> 1;
+    if (s.gu[o + mid] < r) a = mid + 1; else b = mid;
+  }
+  if (a > 0) lo = set.lo[j] + (a - 1) * st + 1;
+  a = 0;
+  b = cnt;  // the first sample with gl >= r
+  while (a < b) {
+    const int mid = (a + b) >> 1;
+    if (s.gl[o + mid] < r) a = mid + 1; else b = mid;
+  }
+  if (a < cnt) hi = set.lo[j] + a * st;
+}
+
+// Per run (4 lanes a run, warp-wide): the brackets also cut to what the
+// others allow (the co-ranks sum to r).
+__device__ __forceinline__ void settle(long long r, long long& lo,
+                                       long long& hi) {
+  const int sub = threadIdx.x & 3;
+  const long long slo = warp_sum(sub == 0 ? lo : 0);
+  const long long shi = warp_sum(sub == 0 ? hi : 0);
+  const long long a = r - (shi - hi), c = r - (slo - lo);
+  lo = a > lo ? a : lo;
+  hi = c < hi ? c : hi;
+}
+
+// A prediction rounded into [lo, hi].
+__device__ __forceinline__ long long clamp_pred(double pred, long long lo,
+                                                long long hi) {
+  const long long p = llround(pred);
+  return p < lo ? lo : p > hi ? hi : p;
+}
+
+// Each run's cut in the staged windows [wl_j, wh_j] for r rows (positions
+// from each run's first staged row): a binary search over the run's
+// window for its first row whose clamped rank in the windows is r or
+// more. The 4 lanes of a run rank that row in the other 7 windows, 2 each
+// at most, each search kept inside what the earlier steps left for it
+// (the ranks grow with the row). Exact whenever the windows hold the true
+// co-ranks.
+template <int NC>
+__device__ int window_cut(const uint32_t* win, int wl, int wh, int r) {
+  const int lane = threadIdx.x & 31, run = lane >> 2, sub = lane & 3;
+  auto rows_of = [&](int j) {
+    return StagedRows<NC>{win + j * kWinRows,
+                          NC >= 2 ? win + (kWay + j) * kWinRows : nullptr,
+                          NC >= 3 ? win + (2 * kWay + j) * kWinRows
+                                  : nullptr};
+  };
+  // the other runs this lane ranks in, and their windows
+  int m[2], ml[2], mh[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int o = sub + 4 * u;  // the o-th run other than this one
+    m[u] = o < kWay - 1 ? (o < run ? o : o + 1) : -1;
+    // every lane takes part in the shuffles (one with no run, its own)
+    const int src = m[u] >= 0 ? m[u] * 4 : lane;
+    const int l = __shfl_sync(0xffffffffu, wl, src);
+    const int h = __shfl_sync(0xffffffffu, wh, src);
+    ml[u] = m[u] >= 0 ? l : 0;
+    mh[u] = m[u] >= 0 ? h : 0;
+  }
+  const StagedRows<NC> own = rows_of(run);
+  const StagedRows<NC> other[2] = {rows_of(m[0] >= 0 ? m[0] : run),
+                                   rows_of(m[1] >= 0 ? m[1] : run)};
+  int lo = wl, hi = wh;  // the cut lies in [lo, hi]
+  int rl[2] = {ml[0], ml[1]}, rh[2] = {mh[0], mh[1]};
+#pragma unroll 1
+  for (int step = 0; step < kCutSteps; ++step) {
+    const int i = (lo + hi) >> 1;
+    const bool live = lo < hi;
+    const Row x = live ? own.at(i) : Row{0u, 0u, 0u};
+    // the rows of each of this lane's two windows before x: two binary
+    // searches side by side
+    int a[2], b[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      a[u] = rl[u];
+      b[u] = live && m[u] >= 0 ? rh[u] : rl[u];
+    }
+    while (a[0] < b[0] || a[1] < b[1]) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (a[u] < b[u]) {
+          const int mid = (a[u] + b[u]) >> 1;
+          if (before<NC>(other[u].at(mid), x, m[u] < run)) {
+            a[u] = mid + 1;
+          } else {
+            b[u] = mid;
+          }
+        }
+      }
+    }
+    const int rk[2] = {m[0] >= 0 ? a[0] : 0, m[1] >= 0 ? a[1] : 0};
+    int sum = rk[0] + rk[1];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (live) {
+      if (i + sum < r) {  // row i lies before the cut
+        lo = i + 1;
+        rl[0] = rk[0];
+        rl[1] = rk[1];
+      } else {
+        hi = i;
+        rh[0] = rk[0];
+        rh[1] = rk[1];
+      }
+    }
+  }
+  return lo;
+}
+
+// One try of the finish (warp-wide): the windows around the predictions
+// staged in `win`, each run's cut found there, and the cut checked against
+// the brackets [lo, hi] (any that hold the true co-ranks). True, with the
+// co-rank in c, iff the cut is the true one; else c is where the windows
+// put it.
+template <int NC, class P>
+__device__ bool window_try(const P& p, const Merge& m, uint32_t* win,
+                           long long r, long long lo, long long hi,
+                           long long pred, long long& c) {
+  const int lane = threadIdx.x & 31, run = lane >> 2, sub = lane & 3;
+  long long wl = pred - kWin / 2 > lo ? pred - kWin / 2 : lo;
+  const long long wh = wl + kWin < hi ? wl + kWin : hi;
+  wl = wh - kWin > lo ? wh - kWin : lo;
+  // rows [a, b]: the window and the rows beside it that the check reads
+  const long long a = wl - 1 > lo ? wl - 1 : lo;
+  const long long b = wh < hi - 1 ? wh : hi - 1;
+  uint32_t v[kWinLoads][NC];
+#pragma unroll
+  for (int e = 0; e < kWinLoads; ++e) {
+    const long long q = a + sub + 4 * e;
+    if (q <= b) {
+#pragma unroll
+      for (int t = 0; t < NC; ++t) v[e][t] = p.run(m, run, t)[q];
+    }
+  }
+  // (the loads are in flight) the rows the windows must give
+  const long long rest = r - warp_sum(sub == 0 ? a : 0);
+  c = wl;
+  if (rest < 0 || rest > kWay * kWinRows) return false;  // out of reach
+#pragma unroll
+  for (int e = 0; e < kWinLoads; ++e) {
+    const int i = sub + 4 * e;
+    if (a + i <= b) {
+#pragma unroll
+      for (int t = 0; t < NC; ++t) {
+        win[(t * kWay + run) * kWinRows + i] = v[e][t];
+      }
+    }
+  }
+  __syncwarp();
+  const int cut = window_cut<NC>(win, static_cast<int>(wl - a),
+                                 static_cast<int>(wh - a),
+                                 static_cast<int>(rest));
+  c = a + cut;
+  // the check: the cut holds r rows, and row c - 1 of each run (if the
+  // brackets leave it open) lies before row c of every other run
+  // (likewise)
+  bool ok = __reduce_add_sync(0xffffffffu, sub == 0 ? cut : 0) == rest;
+  const StagedRows<NC> rows{
+      win + run * kWinRows,
+      NC >= 2 ? win + (kWay + run) * kWinRows : nullptr,
+      NC >= 3 ? win + (2 * kWay + run) * kWinRows : nullptr};
+  const bool has_l = c > lo, has_r = c < hi;
+  const Row left = has_l ? rows.at(cut - 1) : Row{0u, 0u, 0u};
+  const Row right = has_r ? rows.at(cut) : Row{0u, 0u, 0u};
+#pragma unroll
+  for (int mr = 0; mr < kWay; ++mr) {
+    Row y;
+    y.k = __shfl_sync(0xffffffffu, right.k, mr * 4);
+    y.v0 = __shfl_sync(0xffffffffu, right.v0, mr * 4);
+    y.v1 = __shfl_sync(0xffffffffu, right.v1, mr * 4);
+    const bool yr = __shfl_sync(0xffffffffu, has_r, mr * 4);
+    if (has_l && yr && mr != run && !before<NC>(left, y, run < mr)) {
+      ok = false;
+    }
+  }
+  ok = __all_sync(0xffffffffu, ok);
+  __syncwarp();  // the windows' last readers are done
+  return ok;
+}
+
+// A try, and on a miss one more with each window moved to where the first
+// put the cut (a prediction a few rows off lands at a window's edge).
+template <int NC, class P>
+__device__ bool window_tries(const P& p, const Merge& m, uint32_t* win,
+                             long long r, long long lo, long long hi,
+                             long long pred, long long& c) {
+  return window_try<NC>(p, m, win, r, lo, hi, pred, c) ||
+         window_try<NC>(p, m, win, r, lo, hi, c, c);
+}
+
+// The clamped rank of x in rows [lo, hi) of run `rows` in device memory:
+// the first position there whose row is not ordered before x (hi if all
+// are). The 4 lanes of a run's group probe 4 evenly spaced rows a step (a
+// 5-way search). Called by the whole warp, each group with its own run (lo
+// == hi for a group that has nothing to search).
+template <int NC>
+__device__ long long rank_in_run4(const uint32_t* const* rows, long long lo,
+                                  long long hi, const Row& x,
                                   bool or_equal) {
   const int lane = threadIdx.x & 31, sub = lane & 3, first = lane & ~3;
   while (__any_sync(0xffffffffu, lo < hi)) {
     const long long span = hi - lo;
-    const long long p = lo + (sub + 1) * span / 5;
-    const bool b = lo < hi && before<NC>(load_row<NC>(k, v0, v1, p), x,
-                                         or_equal);
+    const long long q = lo + (sub + 1) * span / 5;
+    const bool b =
+        lo < hi && before<NC>(Row{rows[0][q], NC >= 2 ? rows[1][q] : 0u,
+                                  NC >= 3 ? rows[2][q] : 0u},
+                              x, or_equal);
     // the probes before x are a prefix of the group's 4 (a sorted run)
     const int cnt = __popc((__ballot_sync(0xffffffffu, b) >> first) & 0xFu);
     if (lo < hi) {
@@ -246,71 +707,39 @@ __device__ long long rank_in_run4(const uint32_t* __restrict__ k,
   return lo;
 }
 
-// corank[b * 8 + j] = c_j(r_b), the rows of run j of boundary b's merge
-// that the merged order puts before its rank r_b (0 for j >= the merge's
-// run count). One warp a boundary, 4 lanes a run. Every bracket starts as
-// what the windows allow: c_j lies in [lo_j, hi_j] and the co-ranks sum to
-// r, so c_j >= r - sum_{k != j} hi_k and c_j <= r - sum_{k != j} lo_k.
-// Level 0 takes every kCoarse-th boundary of a merge and its stored end;
-// level 1 the others, each run's bracket cut to the co-ranks of the
-// level-0 boundaries on either side (co-ranks only grow with the rank):
-// shorter searches, over rows that L2 holds.
-constexpr int kCoarse = 32;
-
+// The exact cut of r rows from brackets [lo, hi] that hold the true
+// co-ranks, in device memory (warp-wide): bisection of the widest bracket,
+// its middle row x ranked in the other runs' brackets (rank_in_run4), every
+// bracket tightened to x's clamped ranks, until the lower or upper bounds
+// sum to r. For a boundary whose windows miss (the keys jump inside a
+// sample gap), from the brackets the samples prove.
 template <int NC, class P>
-__global__ void __launch_bounds__(kThreads)
-merge_splits(P p, int level, int* __restrict__ corank) {
-  const long long b =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
-  if (b >= p.boundaries()) return;  // the whole warp
-  const Merge m = p.merge_of(b);
-  const long long t = b - m.b0;
-  const long long last = m.b0 + m.nb - 1;  // its last stored boundary
-  const bool coarse = t % kCoarse == 0 || (m.end_stored && b == last);
-  if (coarse != (level == 0)) return;
+__device__ long long bisect(const P& p, const Merge& m, long long lo,
+                            long long hi, long long r) {
   const int lane = threadIdx.x & 31, run = lane >> 2, sub = lane & 3;
-  const long long r = m.r0 + (t * kTile < m.rows ? t * kTile : m.rows);
-  const bool live = run < m.nr;
-  const uint32_t* k = live ? p.run(m, run, 0) : nullptr;
-  const uint32_t* v0 = live && NC >= 2 ? p.run(m, run, 1) : nullptr;
-  const uint32_t* v1 = live && NC >= 3 ? p.run(m, run, 2) : nullptr;
-  long long lo = 0, hi = 0;
-  if (live) {
-    const long long wlo = p.lo(run), whi = p.hi(run);
-    const long long a = r - (p.sum_hi(m) - whi), c = r - (p.sum_lo(m) - wlo);
-    lo = a > wlo ? a : wlo;
-    hi = c < whi ? c : whi;
-    if (level == 1) {
-      const long long below = b - t % kCoarse;
-      long long above = below + kCoarse;
-      if (m.end_stored && above > last) above = last;
-      const long long c0 = corank[below * kWay + run];
-      const long long c1 = above <= last ? corank[above * kWay + run] : whi;
-      lo = c0 > lo ? c0 : lo;
-      hi = c1 < hi ? c1 : hi;
-    }
+  const uint32_t* rows[3] = {nullptr, nullptr, nullptr};
+  if (run < m.nr) {
+    for (int t = 0; t < NC; ++t) rows[t] = p.run(m, run, t);
   }
   while (true) {
-    if (warp_sum(sub == 0 ? lo : 0) == r) break;
-    if (warp_sum(sub == 0 ? hi : 0) == r) {
-      lo = hi;
-      break;
-    }
+    if (warp_sum(sub == 0 ? lo : 0) == r) return lo;
+    if (warp_sum(sub == 0 ? hi : 0) == r) return hi;
     // lo sums below r and hi above it: some bracket is not empty
     const long long w = hi - lo;
     const long long wmax = warp_max(w);
     const int js = (__ffs(__ballot_sync(0xffffffffu, w == wmax)) - 1) >> 2;
     const long long mid = __shfl_sync(0xffffffffu, lo + w / 2, js * 4);
-    // x: row mid of run js, read by that run's first lane
     Row x{0u, 0u, 0u};
-    if (lane == js * 4) x = load_row<NC>(k, v0, v1, mid);
+    if (lane == js * 4) {
+      x = Row{rows[0][mid], NC >= 2 ? rows[1][mid] : 0u,
+              NC >= 3 ? rows[2][mid] : 0u};
+    }
     x.k = __shfl_sync(0xffffffffu, x.k, js * 4);
     if (NC >= 2) x.v0 = __shfl_sync(0xffffffffu, x.v0, js * 4);
     if (NC >= 3) x.v1 = __shfl_sync(0xffffffffu, x.v1, js * 4);
-    // the clamped rank of x in this lane's run (its own run: mid)
-    const bool search = live && run != js;
-    long long rho = rank_in_run4<NC>(k, v0, v1, search ? lo : 0,
-                                     search ? hi : 0, x, run < js);
+    const bool search = run != js;
+    long long rho = rank_in_run4<NC>(rows, search ? lo : 0, search ? hi : 0,
+                                     x, run < js);
     if (run == js) rho = mid;
     if (warp_sum(sub == 0 ? rho : 0) < r) {  // x is before r
       lo = run == js ? mid + 1 : rho;
@@ -318,7 +747,164 @@ merge_splits(P p, int level, int* __restrict__ corank) {
       hi = run == js ? mid : rho;
     }
   }
-  if (sub == 0) corank[b * kWay + run] = static_cast<int>(lo);
+}
+
+// The rank of boundary t of merge m.
+__device__ __forceinline__ long long rank_of(const Merge& m, long long t) {
+  return m.r0 + (t * kTile < m.rows ? t * kTile : m.rows);
+}
+
+// Rows of a CTA's shared memory: its sample set, then a window area a
+// warp.
+template <int NC>
+constexpr size_t split_smem() {
+  return sample_bytes<NC>(kWay * kSpanM) +
+         static_cast<size_t>(kSplitWarps) * NC * kWay * kWinRows *
+             sizeof(uint32_t);
+}
+
+// Boundary t of merge m by the whole CTA, its co-ranks inside the
+// brackets set.lo, set.hi (in place, and *done 0): warp 0 tries the
+// windows, and while the check fails the CTA samples the brackets (kSpanM
+// a run) into s and ranks them, and warp 0 takes each run's bracket and
+// prediction from them and tries again.
+template <int NC, class P>
+__device__ void cta_rounds(const P& p, const Merge& m, long long t,
+                           SampleSet& set, const SampleRows<NC>& s,
+                           uint32_t* win, int* done, int* corank) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int run = lane >> 2, sub = lane & 3;
+  const long long r = rank_of(m, t);
+  for (int round = 0;; ++round) {
+    if (warp == 0) {
+      long long lo = set.lo[run], hi = set.hi[run];
+      double pr = static_cast<double>(lo);
+      if (round > 0) {
+        bracket_of<NC>(set, s, run, r, lo, hi);
+        pr = predict<NC>(set, s, run, r);
+      }
+      settle(r, lo, hi);
+      long long c;
+      const bool ok = window_tries<NC>(p, m, win, r, lo, hi,
+                                       clamp_pred(pr, lo, hi), c);
+      if (ok) {
+        if (sub == 0) corank[(m.b0 + t) * kWay + run] = static_cast<int>(c);
+        if (lane == 0) *done = 1;
+      } else if (sub == 0) {
+        set.lo[run] = lo;
+        set.hi[run] = hi;
+      }
+    }
+    __syncthreads();
+    if (*done) break;
+    if (round == kMaxRounds) __trap();  // cannot happen: rounds shrink
+    if (threadIdx.x == 0) finish_set(set, kSpanM);
+    __syncthreads();
+    load_samples<NC, kSpanLoads>(p, m, set, s, threadIdx.x, kSplitThreads);
+    __syncthreads();
+    rank_samples<NC>(set, s, threadIdx.x, kSplitThreads);
+    __syncthreads();
+  }
+  __syncthreads();  // every thread has read *done
+}
+
+// One coarse level: the boundaries at multiples of `stride` tiles, a CTA
+// each (`per_merge` CTAs a merge), those at multiples of `parent` left to
+// the levels above. At the top (parent 0) every multiple and a range's
+// stored end, the brackets the windows; below, the exact co-ranks of the
+// span of `parent` tiles around the boundary.
+template <int NC, class P>
+__global__ void __launch_bounds__(kSplitThreads)
+coarse_splits(P p, long long stride, long long parent, long long per_merge,
+              int* __restrict__ corank) {
+  extern __shared__ __align__(16) unsigned char coarse_mem[];
+  __shared__ SampleSet set;
+  __shared__ int done;
+  const long long g = blockIdx.x / per_merge, k = blockIdx.x % per_merge;
+  const Merge m = p.merge(g);
+  const long long last = m.nb - 1;
+  long long t = k * stride;
+  if (parent != 0 && (t % parent == 0 || t >= m.nb)) return;  // the CTA
+  if (t >= m.nb) {
+    if (!m.end_stored || t - stride >= last) return;  // the whole CTA
+    t = last;
+  }
+  if (threadIdx.x < kWay) {
+    const int j = threadIdx.x;
+    long long lo = 0, hi = 0;
+    if (j < m.nr && parent == 0) {
+      lo = p.lo(j);
+      hi = p.hi(j);
+    } else if (j < m.nr) {
+      const long long t0 = t - t % parent;
+      long long t1 = t0 + parent;
+      if (m.end_stored && t1 > last) t1 = last;
+      lo = corank[(m.b0 + t0) * kWay + j];
+      hi = t1 < m.nb ? corank[(m.b0 + t1) * kWay + j] : p.hi(j);
+    }
+    set.lo[j] = lo;
+    set.hi[j] = hi;
+  }
+  if (threadIdx.x == 0) done = 0;
+  __syncthreads();
+  cta_rounds<NC>(p, m, t, set, carve<NC>(coarse_mem, kWay * kSpanM),
+                 reinterpret_cast<uint32_t*>(
+                     coarse_mem + sample_bytes<NC>(kWay * kSpanM)),
+                 &done, corank);
+}
+
+// The boundaries between the coarse ones: a CTA a span of kFan tiles
+// (`per_merge` CTAs a merge), sampled once; a warp a boundary, a window
+// around its prediction, or, where the windows miss twice, the bisection
+// from the brackets the span's samples prove.
+template <int NC, class P>
+__global__ void __launch_bounds__(kSplitThreads, kSplitCtas)
+merge_splits(P p, long long per_merge, int* __restrict__ corank) {
+  extern __shared__ __align__(16) unsigned char split_mem[];
+  __shared__ SampleSet span;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int run = lane >> 2, sub = lane & 3;
+  const long long g = blockIdx.x / per_merge;
+  const long long t0 = blockIdx.x % per_merge * kFan;
+  const Merge m = p.merge(g);
+  const long long last = m.nb - 1;
+  // the span [t0, right]: its exact co-ranks at both ends (a group's end:
+  // its runs' lengths), its inner boundaries t0 + 1 .. end - 1
+  long long right = t0 + kFan;
+  if (m.end_stored && right > last) right = last;
+  const long long end = right < m.nb ? right : m.nb;
+  if (t0 + 1 >= end) return;  // the whole CTA
+  if (threadIdx.x < kWay) {
+    const int j = threadIdx.x;
+    const bool live = j < m.nr;
+    span.lo[j] = live ? corank[(m.b0 + t0) * kWay + j] : 0;
+    span.hi[j] = !live           ? 0
+                 : right < m.nb ? corank[(m.b0 + right) * kWay + j]
+                                : p.hi(j);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) finish_set(span, kSpanM);
+  __syncthreads();
+  const SampleRows<NC> s = carve<NC>(split_mem, kWay * kSpanM);
+  load_samples<NC, kSpanLoads>(p, m, span, s, threadIdx.x, kSplitThreads);
+  __syncthreads();
+  rank_samples<NC>(span, s, threadIdx.x, kSplitThreads);
+  __syncthreads();
+  uint32_t* win = reinterpret_cast<uint32_t*>(
+                      split_mem + sample_bytes<NC>(kWay * kSpanM)) +
+                  warp * NC * kWay * kWinRows;
+  for (long long t = t0 + 1 + warp; t < end; t += kSplitWarps) {
+    const long long r = rank_of(m, t);
+    long long lo = span.lo[run], hi = span.hi[run], c;
+    if (!window_tries<NC>(p, m, win, r, lo, hi,
+                          clamp_pred(predict<NC>(span, s, run, r), lo, hi),
+                          c)) {
+      bracket_of<NC>(span, s, run, r, lo, hi);
+      settle(r, lo, hi);
+      c = bisect<NC>(p, m, lo, hi, r);
+    }
+    if (sub == 0) corank[(m.b0 + t) * kWay + run] = static_cast<int>(c);
+  }
 }
 
 // --- the merge of a tile in shared memory ----------------------------------
@@ -475,28 +1061,50 @@ constexpr size_t merge_smem(int nc) {
          2 * kTile * sizeof(uint16_t);
 }
 
-// The partition of a pass (policy P) into corank: its two levels.
-template <class P>
-cudaError_t launch_splits(const P& p, long long boundaries, int ncmp,
-                          int* corank, cudaStream_t st) {
-  const long long blocks = (boundaries * 32 + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const auto grid = static_cast<unsigned>(blocks);
-  for (int level = 0; level < 2; ++level) {
-    switch (ncmp) {
-      case 1:
-        merge_splits<1, P><<<grid, kThreads, 0, st>>>(p, level, corank);
-        break;
-      case 2:
-        merge_splits<2, P><<<grid, kThreads, 0, st>>>(p, level, corank);
-        break;
-      default:
-        merge_splits<3, P><<<grid, kThreads, 0, st>>>(p, level, corank);
-    }
-    const cudaError_t err = cudaGetLastError();
+template <int NC, class P>
+cudaError_t launch_splits_nc(const P& p, long long merges, long long nb,
+                             int* corank, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      coarse_splits<NC, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(split_smem<NC>()));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(merge_splits<NC, P>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(split_smem<NC>()));
+  if (err != cudaSuccess) return err;
+  // the coarse boundaries, top down: every kFan^K-th tile's (and a stored
+  // end) from the windows, then every kFan^k-th for k = K - 1 .. 1 from
+  // the spans above; then the spans of kFan tiles
+  const long long spans = (nb + kFan - 1) / kFan;
+  long long top = kFan;
+  while (top * kFan < nb) top *= kFan;
+  for (long long stride = top; stride >= kFan; stride /= kFan) {
+    const long long per = (nb + stride - 1) / stride + (stride == top);
+    if (merges * per > 0x7fffffffLL) return cudaErrorInvalidValue;
+    coarse_splits<NC, P><<<static_cast<unsigned>(merges * per),
+                           kSplitThreads, split_smem<NC>(), st>>>(
+        p, stride, stride == top ? 0 : stride * kFan, per, corank);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  return cudaSuccess;
+  merge_splits<NC, P><<<static_cast<unsigned>(merges * spans), kSplitThreads,
+                        split_smem<NC>(), st>>>(p, spans, corank);
+  return cudaGetLastError();
+}
+
+// The partition of a pass (policy P, `merges` merges of at most nb
+// boundaries each) into corank.
+template <class P>
+cudaError_t launch_splits(const P& p, long long merges, long long nb,
+                          int ncmp, int* corank, cudaStream_t st) {
+  switch (ncmp) {
+    case 1:
+      return launch_splits_nc<1>(p, merges, nb, corank, st);
+    case 2:
+      return launch_splits_nc<2>(p, merges, nb, corank, st);
+    default:
+      return launch_splits_nc<3>(p, merges, nb, corank, st);
+  }
 }
 
 template <int NC, class P>
@@ -610,7 +1218,8 @@ extern "C" int lsd_merge_path_splits(const void* const* in, long long n,
   if (bad_pass(ncmp, n, run_len, ncmp)) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const Groups g = groups_of(in, nullptr, ncmp, n, run_len);
-  return launch_splits(g, g.total_tiles, ncmp, static_cast<int*>(corank),
+  return launch_splits(g, (g.nruns + kWay - 1) / kWay, g.tiles_per_group,
+                       ncmp, static_cast<int*>(corank),
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -649,7 +1258,7 @@ extern "C" int lsd_merge_runs_splits(const void* const* in, int nruns, int ns,
                &r)) {
     return cudaErrorInvalidValue;
   }
-  return launch_splits(r, r.ntiles + 1, ncmp, static_cast<int*>(corank),
+  return launch_splits(r, 1, r.ntiles + 1, ncmp, static_cast<int*>(corank),
                        static_cast<cudaStream_t>(stream));
 }
 

@@ -78,13 +78,14 @@ def build() -> Path:
         with open(obj.with_suffix(".log"), "w") as log:
             proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
         jobs.append((cmd, obj, proc))
-    logs, failed = [], []
+    logs, failed, errors = [], [], []
     for cmd, obj, proc in jobs:
         rc = proc.wait()
         logs.append(" ".join(cmd) + "\n" + obj.with_suffix(".log").read_text())
         obj.with_suffix(".log").unlink()
         if rc != 0:
             failed.append(f"{Path(cmd[-1]).name}: nvcc exit {rc}")
+            errors.append(logs[-1])
     objs = [str(obj) for _, obj, _ in jobs]
     if not failed:
         link = [nvcc, "-shared", "-o", str(tmp), *objs]
@@ -93,13 +94,15 @@ def build() -> Path:
         logs.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
         if proc.returncode != 0:
             failed.append(f"link: nvcc exit {proc.returncode}")
+            errors.append(logs[-1])
     for obj in objs:
         Path(obj).unlink(missing_ok=True)
     text = "\n".join(logs)
     out.with_suffix(".log").write_text(text)
     if failed:
-        raise RuntimeError(f"nvcc failed ({'; '.join(failed)}):\n"
-                           f"{text[-4000:]}")
+        # the failing commands' own output, not the others' register lines
+        detail = "\n".join(errors)[-4000:]
+        raise RuntimeError(f"nvcc failed ({'; '.join(failed)}):\n{detail}")
     os.replace(tmp, out)
     return out
 

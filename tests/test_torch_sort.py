@@ -286,6 +286,7 @@ def test_port_imports_no_jax():
             "lsdradixsort_tpu_torch.parallel.dist_sort, "
             "lsdradixsort_tpu_torch.parallel.dist_query, "
             "lsdradixsort_tpu_torch.parallel.launch, "
+            "lsdradixsort_tpu_torch.bench.partition, "
             "lsdradixsort_tpu_torch.bench.runner, "
             "lsdradixsort_tpu_torch.bench.dist; "
             "bad = [m for m in sys.modules if m == 'jax' or "
