@@ -54,7 +54,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    presorted keys (boundaries on sample rows) at runs of 2^15 and 2^17
    (a last group of 5) and at run 2^21 of 2^24 rows (two coarse levels),
    ncmp 1-3; and for merge_runs_splits the hot key too, a run of 40 rows
-   (shorter than a sample stride) and a range of over 1,024 tiles.
+   (shorter than a sample stride) and a range of over 1,024 tiles. The
+   tile merge's own edges: runs on disjoint key ranges (every tile drawn
+   from one window, the others of 0 rows) at 1-8 streams and ncmp 1-3,
+   streams seen through views 1-3 words off 16-byte alignment (window
+   starts at every residue mod 4, each compared stream at its own), tile
+   counts below and no multiple of the persistent grid, and ranges of 8
+   runs with 8 streams at ncmp 2 and 3.
    Then the scans at 2^22, 100000 and 131712 words of full-range u32
    (wraparound) and of i32, block_prefix_sums at blocks 128, 512 and
    2^13; exclusive_scan at n = 0, 1, a scan tile and a CTA's words, each
@@ -165,11 +171,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    every merge pass of the chain (run 2^15, 2^18, 2^21, 2^24), each fed
    the kernel's previous output, its partition (merge_path_splits) timed
    on its own beside it (the pass's time includes it) and traced, each
-   of its launches' device time apart, and the same at ncmp = 3 (hi, lo,
-   position); merge_pass_runs on each range of the 2^30 chunked pass (2
-   streams, untrimmed runs), its partition timed and traced on its own
-   beside it, beside a stable torch.sort of the 2^30 int64 (key,
-   position) words; the histogram of
+   of its launches' device time apart, the pass traced too for the tile
+   merge's (merge_tiles) own device time beside its bound, and the same
+   at ncmp = 3 (hi, lo, position); merge_pass_runs on each range of the
+   2^30 chunked pass (2 streams, untrimmed runs), its partition and its
+   tile merge timed or traced on their own beside it, beside a stable
+   torch.sort of the 2^30 int64 (key, position) words; the histogram of
    2^27 keys at each r, and of 2^27 all-equal keys at each r;
    exclusive_scan of each r's digit-major histogram (beside
    torch.cumsum) and of 2^27 words; block_prefix_sums of each r's
@@ -568,7 +575,48 @@ def main() -> int:
             merge_case(f"{fam} run=2^21 n=2^24 streams={ns} ncmp={ncmp}",
                        [x] + deep[:ns - 1], 1 << 21, ncmp)
         del x
-    del extra, deep
+    del deep
+    # the tile merge's own edges (csrc/merge.cu merge_tiles): runs on
+    # disjoint key ranges, so that every tile is drawn from one window and
+    # the 7 others hold 0 rows; streams seen through views 1-3 words off
+    # 16-byte alignment, so that the windows' bulk copies start at every
+    # residue mod 4 and each compared stream at its own; tile counts below
+    # the persistent grid (132 SMs times 2-4 CTAs) and no multiple of it;
+    # ncmp 1-3 with riders
+    gen = torch.Generator(device=dev).manual_seed(81)
+    for run, nruns in ((1 << 13, 8 * 7 + 3), (4096, 1000), (1000, 8 + 3)):
+        m = run * nruns
+        # run r of the pass holds keys in [o(r) w, (o(r) + 1) w), o a
+        # permutation, so a group's merged order takes its runs one by one
+        width = (1 << 32) // nruns
+        order = torch.randperm(nruns, generator=gen, device=dev)
+        disjoint = i64_to_u32((order.view(-1, 1) * width + torch.randint(
+            0, width, (nruns, run), generator=gen, device=dev)).view(-1))
+        for ns, ncmp in ((1, 1), (2, 2), (4, 2), (8, 3)):
+            merge_case(f"one-window tiles run={run} n={m} streams={ns} "
+                       f"ncmp={ncmp}", [disjoint] + [e[:m] for e in
+                                                    extra[:ns - 1]],
+                       run, ncmp)
+        del disjoint
+    for shift in (1, 2, 3):
+        views = []
+        for i, t in enumerate([random_keys(n2, 83, dev)] + extra[:3]):
+            pad = (shift + i) % 4
+            buf = torch.empty(n2 + 4, dtype=torch.int32, device=dev)
+            buf[pad:pad + n2] = t.view(torch.int32)
+            views.append(buf[pad:pad + n2].view(torch.uint32))
+        for ns, ncmp, run in ((1, 1, 1 << 15), (2, 2, 1 << 15), (4, 3, 1000),
+                              (3, 1, 3)):
+            m = n2 if run == 1 << 15 else (8 * 3 + 5) * run
+            merge_case(f"views {shift}-{shift + ns - 1} words off run={run} "
+                       f"n={m} streams={ns} ncmp={ncmp}",
+                       [v[:m] for v in views[:ns]], run, ncmp)
+        del views
+    for tiles, run in ((3, 1536), (1007, 4096)):
+        m = tiles * M.TILE
+        merge_case(f"{tiles} tiles run={run} n={m} streams=2 ncmp=2",
+                   [random_keys(m, 84, dev), extra[0][:m]], run, 2)
+    del extra
     print(f"phase 2: merge-path partition and merge bit exact on the edge "
           f"cases (max_abs_err {max_err['merge_path_splits']}, "
           f"{max_err['merge_pass_multi']})")
@@ -649,7 +697,7 @@ def main() -> int:
     for fam, hi_ in (("all_equal", 1), ("few", 3), ("uniform", 1 << 32),
                      ("hot90", 0)):
         for S, ns, ncmp in ((2, 1, 1), (3, 3, 3), (8, 8, 2), (8, 3, 3),
-                            (3, 8, 1), (2, 2, 2), (8, 2, 2)):
+                            (3, 8, 1), (8, 8, 3), (2, 2, 2), (8, 2, 2)):
             deep = (S, ns, ncmp) == (8, 2, 2)
             lens = [int(v) for v in torch.randint(
                 3000 if S == 8 else 200_000, 300_000, (S,), generator=rgen,
@@ -1611,6 +1659,18 @@ def main() -> int:
               f"{sum(ms for _, ms in launches):.4f} ms device: {parts} "
               f"({card})")
 
+    def trace_merge(what, nbytes, fn):
+        """merge_tiles' own device time apart from its partition's, from
+        one traced call (bench/partition.py `trace_launches`), beside its
+        bound: every stream read and written once."""
+        launches = trace_launches(fn)
+        ms = sum(t for k, t in launches if "merge_tiles" in k)
+        part = [t for k, t in launches if "splits" in k]
+        print(f"trace merge_tiles [{what}]: {ms:.4f} ms device, bound "
+              f"{bound_ms(nbytes):.4f} ms ({100 * bound_ms(nbytes) / ms:.1f} "
+              f"% of the kernel's time); the partition {sum(part):.4f} ms "
+              f"in {len(part)} launches ({card})")
+
     def flipped(x):
         return x.view(torch.int32) ^ -(1 << 31)
 
@@ -1659,6 +1719,10 @@ def main() -> int:
                 (streams[0], streams[1:2], run), splits_bytes(run), as_u32)
             trace_splits(f"{what} run=2^{run.bit_length() - 1}",
                          M.merge_path_splits, streams[0], streams[1:2], run)
+            trace_merge(f"{what} run=2^{run.bit_length() - 1}",
+                        2 * 4 * n * len(streams),
+                        lambda s=streams, r=run: M.merge_pass_multi(
+                            s[0], s[1:], r))
             streams = check_and_time(
                 "merge_pass_multi",
                 f"{what} run=2^{run.bit_length() - 1}", M.merge_pass_multi,
@@ -1683,6 +1747,9 @@ def main() -> int:
             (streams[0], streams[1:3], run), splits_bytes(run), as_u32)
         trace_splits(f"hi+lo+pos ncmp=3 run=2^{run.bit_length() - 1}",
                      M.merge_path_splits, streams[0], streams[1:3], run, 3)
+        trace_merge(f"hi+lo+pos ncmp=3 run=2^{run.bit_length() - 1}",
+                    2 * 4 * n * 3, lambda s=streams, r=run:
+                    M.merge_pass_multi(s[0], s[1:], r, ncmp=3))
         streams = check_and_time(
             "merge_pass_multi",
             f"hi+lo+pos ncmp=3 run=2^{run.bit_length() - 1}",
@@ -1998,6 +2065,9 @@ def main() -> int:
             elems=n30 // 2)
         trace_splits(f"2^30 pass, range {ri} of 2",
                      lambda: M.merge_runs_splits(runs, tab, **part))
+        trace_merge(f"2^30 pass, range {ri} of 2, 2 streams",
+                    2 * 2 * 4 * (n30 // 2),
+                    lambda kw=kw: M.merge_pass_runs(runs, tab, **kw))
         check_and_time(
             "merge_pass_runs", f"2^30 pass, range {ri} of 2, 2 streams",
             lambda rs, t, kw=kw: M.merge_pass_runs(rs, t, **kw),

@@ -1,5 +1,6 @@
 """Time this checkout's tile sorts, histograms, compactions, merge-path
-partitions and merge sorts in turns with another checkout's, on one card.
+partitions, merge passes and merge sorts in turns with another
+checkout's, on one card.
 
     python -m lsdradixsort_tpu_torch.bench.turns OTHER [--out FILE]
         [--only TEXT]
@@ -26,9 +27,13 @@ their positions (key+pos) at runs of 2^15 and 2^24, and of the 64-bit
 chain's (hi, lo, position) at ncmp = 3 and run 2^15; the partition of one
 range of merge_runs_splits on each of the two ranges of the 2^30 pass (8
 runs of 2^27 sorted keys, seed 11, with their positions; tables of
-2^19-row chunks); merge_sort_keys and merge_sort_with_ranks of the 2^27
-keys. Each case's time is the median of 5 CUDA-event timings after a
-warm-up. Prints one line a case; --out
+2^19-row chunks); the merge passes themselves (`merge_pass_multi`) on
+the same inputs: keys alone at runs of 2^15, 2^18, 2^21 and 2^24 rows,
+key+pos at 2^15 and 2^24, key+pos+payload (a rider, seed 2) and the
+64-bit chain's (hi, lo, position) at ncmp = 3 at 2^15; `merge_pass_runs`
+on each of the two ranges of the 2^30 pass; merge_sort_keys and
+merge_sort_with_ranks of the 2^27 keys. Each case's time is the median
+of 5 CUDA-event timings after a warm-up. Prints one line a case; --out
 writes every turn's times as JSON; --only runs the cases whose names
 hold TEXT.
 """
@@ -127,6 +132,8 @@ def worker(only: str) -> dict:
         n = 1 << 27
         cols = {"keys": lambda: [d()["keys"]],
                 "key+pos": lambda: [d()["keys"], d()["iota"]],
+                "key+pos+payload": lambda: [d()["keys"], d()["iota"],
+                                            d()["pay"]],
                 "hi+lo+pos": lambda: [keys_of(n, 11), keys_of(n, 12),
                                       d()["iota"]]}[what]()
         perm = row_order(cols, run)
@@ -147,6 +154,17 @@ def worker(only: str) -> dict:
     def splits(what, ncmp, run):
         cols = merge_runs(what, run)
         return M.merge_path_splits(cols[0], cols[1:], run, ncmp)
+
+    def merge_pass(what, ncmp, run):
+        cols = merge_runs(what, run)
+        return M.merge_pass_multi(cols[0], cols[1:], run, ncmp)
+
+    def range_pass(ri):
+        runs, tab = pass_2_30()
+        nch = (1 << 30) >> 19
+        return M.merge_pass_runs(runs, tab, chunk0=ri * nch // 2,
+                                 nchunks=nch // 2, chunk_elems=1 << 19,
+                                 buf_elems=M.DEF_BUF)
 
     def range_splits(ri):
         runs, tab = pass_2_30()
@@ -188,6 +206,17 @@ def worker(only: str) -> dict:
     for ri in range(2):
         cases[f"merge_runs_splits key+pos 2^30 pass range {ri} of 2"] = (
             lambda ri=ri: range_splits(ri))
+    for what, ncmp, runs in (("keys", 1, (15, 18, 21, 24)),
+                             ("key+pos", 2, (15, 24)),
+                             ("key+pos+payload", 2, (15,)),
+                             ("hi+lo+pos", 3, (15,))):
+        for lg in runs:
+            cases[f"merge_pass_multi {what} ncmp={ncmp} run=2^{lg} "
+                  f"n=2^27"] = (lambda what=what, ncmp=ncmp, lg=lg:
+                                merge_pass(what, ncmp, 1 << lg))
+    for ri in range(2):
+        cases[f"merge_pass_runs key+pos 2^30 pass range {ri} of 2"] = (
+            lambda ri=ri: range_pass(ri))
     cases["merge_sort_keys n=2^27"] = lambda: merge_sort_keys(d()["keys"])
     cases["merge_sort_with_ranks n=2^27"] = (
         lambda: merge_sort_with_ranks(d()["keys"]))

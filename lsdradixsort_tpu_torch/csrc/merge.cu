@@ -2,7 +2,8 @@
 //
 // Replaces two Pallas kernels of lsdradixsort_tpu/kernels/merge.py:
 //
-//   * merge_pass_multi (_merge_kernel_multi / _merge_kernel_multi_pipe):
+//   * merge_pass_multi (_merge_kernel_multi / _merge_kernel_multi_pipe,
+//     merge.py:433, :474):
 //     the input is n rows in sorted runs of run_len; every group of up to
 //     8 consecutive runs becomes one sorted run.
 //   * merge_pass_runs (the same bodies, slot-routed): S <= 8 sorted runs,
@@ -37,32 +38,47 @@
 //     of them (merge_splits, the span sampled once for its 31
 //     boundaries; a boundary whose windows miss is bisected from its
 //     sampled brackets).
-//   * merge_tiles (lsd_merge_pass, lsd_merge_pass_runs): one CTA an output
-//     tile. Its windows [c_j(r), c_j(r + kTile)) together hold exactly the
-//     tile's rows, so shared memory is bounded whatever the skew (an
-//     input-partitioned block's windows in the other runs are not). The
-//     CTA loads the windows' compared words coalesced into shared memory
-//     and merges them as a tree of stable 2-way merges, windows in pairs,
-//     then quads, then all 8 (ties go to the left half, the lower runs). At
-//     each level a thread writes kRun consecutive output positions: one
-//     merge-path binary search for its first position, then a sequential
-//     merge, one compare an output. The levels move 16-bit row indices, so
-//     the rows themselves stay put; every stream is then gathered through
-//     the final order (the compared ones from shared memory, each rider
-//     first staged there from its windows, read coalesced) and stored
-//     coalesced.
+//   * merge_tiles (lsd_merge_pass, lsd_merge_pass_runs): a persistent
+//     grid (the CTAs resident at once), each CTA walking output tiles
+//     gridDim.x apart. A tile's windows [c_j(r), c_j(r + kTile)) together
+//     hold exactly its rows, so shared memory is bounded whatever the skew
+//     (an input-partitioned block's windows in the other runs are not).
+//     Warp 0 plans: it reads a tile's co-ranks a tile ahead, lays out its
+//     windows, and loads each window of each compared stream with one bulk
+//     copy (cp.async.bulk, the TMA's 1-D form) of the window's
+//     16-byte-aligned cover, completing on an mbarrier: at ncmp = 1 into a
+//     second stage buffer while the current tile merges, else into the one
+//     stage buffer as soon as the tile's last level has read it. Warps 1-7
+//     merge: a tree of stable 2-way merges, windows in pairs, then quads,
+//     then all 8 (ties go to the left half, the lower runs), from the stage
+//     buffer to a work buffer and back. At each level a thread writes kRun
+//     consecutive rows: a merge-path binary search for its first, then a
+//     sequential merge with both candidate rows in registers, one
+//     shared-memory load an output (two compared words a row interleaved:
+//     one 8-byte load), written straight to the other buffer. The first
+//     level reads each window where its copy put it. The compared streams
+//     go out coalesced, 16 bytes a thread; a rider is staged in the work
+//     buffer and gathered through each row's place in the tile, which the
+//     levels carry in two 16-bit arrays.
 //
-// kTile = 4096 rows: ncmp compared words and two 16-bit orders a row take
-// (4 * ncmp + 4) * 4096 bytes, 32 / 48 / 64 KB for ncmp = 1 / 2 / 3, so 7 /
-// 4 / 3 CTAs share an SM's 227 KB (a rider is staged in the first compared
-// array once the compared streams are out, so riders cost no shared
-// memory); a smaller tile would need more partition searches, a larger one
+// kTile = 4096 rows, the co-rank table's tile: a buffer is ncmp arrays of
+// kTile + 64 words (the covers' slack), so two stage buffers and the work
+// buffer take 49 KB at ncmp = 1 (4 CTAs an SM), a stage and the work buffer
+// 65 / 98 KB at ncmp = 2 / 3 (3 / 2 CTAs), and riders 16 KB more for the
+// places. A smaller tile would need more partition searches, a larger one
 // fewer CTAs an SM. A range's co-rank table is 32 bytes a tile, which the
 // caller allocates.
 //
 // What bounds them on the H100. merge_tiles: device-memory bytes, one
-// read and one write of every stream, coalesced; its shared-memory
-// searches are what it adds. The partition needs only the table (32 bytes
+// read and one write of every stream, are its floor; what it adds is the
+// issue of its three levels, each a chain of some 11 dependent
+// shared-memory loads (the search) and kRun dependent merge steps a
+// thread, and their bank conflicts, with few warps an SM (its buffers'
+// shared memory); and the wait for each tile's load. So a step is one load
+// and selects, with no index to follow and no divergent branch, the loads
+// land while a merge goes on (this CTA's or another's), and one warp
+// issues them and does the planning, off the merging warps' path. The
+// partition needs only the table (32 bytes
 // a tile), but placing a boundary reads rows scattered over 8 runs: a
 // search that probes device memory bracket by bracket (a warp a boundary
 // bisecting with 5-way searches: some 15 steps of 28 scattered probes
@@ -101,10 +117,16 @@ __device__ __forceinline__ bool before(const Row& y, const Row& x,
 }
 
 constexpr int kTile = 4096;
+// a merge CTA: warp 0 plans and loads the tiles, the others merge them
 constexpr int kMergeThreads = 256;
-// output rows a thread merges at each level: odd, so that the threads of a
-// warp write to different banks, and kMergeThreads * kRun >= kTile
+// output rows a thread writes at a level: odd, so that the threads of a
+// warp write to different banks; at the first level warp 0 plans and the
+// others merge (kRun1 a thread), at the later ones all merge (kRun)
+constexpr int kRun1 = kTile / (kMergeThreads - 32) + 1;
 constexpr int kRun = kTile / kMergeThreads + 1;
+static_assert(kRun1 % 2 == 1 && (kMergeThreads - 32) * kRun1 >= kTile &&
+                  kRun % 2 == 1 && kMergeThreads * kRun >= kTile,
+              "kRun");
 
 __device__ __forceinline__ long long warp_sum(long long v) {
 #pragma unroll
@@ -909,83 +931,216 @@ merge_splits(P p, long long per_merge, int* __restrict__ corank) {
 
 // --- the merge of a tile in shared memory ----------------------------------
 
-// The compared words of row q of the tile in shared memory (kTile apart).
-template <int NC>
-__device__ __forceinline__ Row row_at(const uint32_t* cmp, int q) {
-  return Row{cmp[q], NC >= 2 ? cmp[kTile + q] : 0u,
-             NC >= 3 ? cmp[2 * kTile + q] : 0u};
+// Rows a thread stages of a rider, and the words of a stream's array in a
+// buffer: a window's 16-byte-aligned cover holds at most 3 words more on
+// either side of it (kTile + 48 in all), and a merge may read one row past
+// a window's last.
+constexpr int kPer = kTile / kMergeThreads;
+constexpr int kStride = kTile + 64;
+// Compared words a row (the partition's and the merge's ncmp).
+constexpr int kMaxCmp = 3;
+
+// The Hopper pieces: an mbarrier in shared memory, and a bulk copy (the
+// TMA's 1-D form) from device memory that completes its bytes on one.
+__device__ __forceinline__ uint32_t smem_word(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// One level of the tile's merge tree: segment s of the level is windows
-// [s * w, (s + 1) * w) (w = 2, 4, 8), the stable merge of its left half
-// and its right half. Each thread writes the output positions [t * kRun,
-// (t + 1) * kRun): a merge-path search for its first position in each
-// segment it touches, then a sequential merge. `in` (nullptr at the first
-// level: the rows themselves) and `out` hold row indices of the tile.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_word(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival, and the bytes the phase waits for.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_word(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_word(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// bytes (a multiple of 16) from 16-byte-aligned src to 16-byte-aligned dst.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_word(dst)),
+      "l"(src), "r"(bytes), "r"(smem_word(bar))
+      : "memory");
+}
+
+// Orders this thread's writes to shared memory before the bulk copies
+// issued after the next barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A tile in shared memory. off: window j is the tile's rows [off[j],
+// off[j + 1]) of the merged layout. pos[w][j]: where the bulk copy put
+// window j's first row of compared stream w. src[t][j][q]: rider t's row q
+// of the tile for q in window j (the run's pointer shifted by off[j]).
+struct TilePlan {
+  int off[kWay + 1];
+  int pos[kMaxCmp][kWay];
+  long long out0;  // the output row of the tile's first
+  const uint32_t* src[kMaxStreams][kWay];
+};
+
+// Lane j < 8 of a warp: run j's window [c0, c1) of tile b (empty for runs
+// past the merge's last). The loads are issued here and waited on where
+// the values are first used, a tile later.
+template <class P>
+__device__ __forceinline__ void window_of(const P& p,
+                                          const int* __restrict__ corank,
+                                          long long b, int& c0, int& c1) {
+  const int j = threadIdx.x & (kWay - 1);
+  const Merge m = p.merge_of(b);
+  // [c_j(b), c_j(b + 1)): the next boundary's co-ranks or, past the
+  // merge's stored boundaries, the windows' ends
+  c0 = c1 = 0;
+  if (j < m.nr) {
+    c0 = corank[b * kWay + j];
+    c1 = b + 1 < m.b0 + m.nb ? corank[(b + 1) * kWay + j]
+                             : static_cast<int>(p.hi(j));
+  }
+}
+
+// The exclusive sum of v over lanes j = 0..7 of each 8 lanes.
+__device__ __forceinline__ int lanes8_before(int v) {
+  const int j = threadIdx.x & (kWay - 1);
+  int sum = v;
+#pragma unroll
+  for (int d = 1; d < kWay; d <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, sum, d, kWay);
+    if (j >= d) sum += u;
+  }
+  return sum - v;
+}
+
+// A planner lane's bulk copies of a tile: run j's window in compared
+// stream w is the 16-byte-aligned cover of `words` words at `from`, which
+// lands at word `at` of the stream's stage array; `bytes` is the tile's
+// total.
 template <int NC>
-__device__ void merge_level(const uint32_t* cmp, const int* off, int w,
-                            const uint16_t* in, uint16_t* out, int rows) {
-  int o = threadIdx.x * kRun;
-  const int o_end = o + kRun < rows ? o + kRun : rows;
-  int s = 0;
-  while (o < o_end) {
-    while (off[(s + 1) * w < kWay ? (s + 1) * w : kWay] <= o) ++s;
-    const int lo = off[s * w];
-    const int mid = off[s * w + w / 2 < kWay ? s * w + w / 2 : kWay];
-    const int hi = off[(s + 1) * w < kWay ? (s + 1) * w : kWay];
-    const int n1 = mid - lo, n2 = hi - mid, d = o - lo;
-    auto left = [&](int i) { return in ? in[lo + i] : lo + i; };
-    auto right = [&](int i) { return in ? in[mid + i] : mid + i; };
-    // i: rows of the left half among the segment's first d (ties: left)
-    int a = d > n2 ? d - n2 : 0, b = d < n1 ? d : n1;
-    while (a < b) {
-      const int m = (a + b) >> 1;
-      if (!before<NC>(row_at<NC>(cmp, right(d - 1 - m)),
-                      row_at<NC>(cmp, left(m)), false)) {
-        a = m + 1;
-      } else {
-        b = m;
-      }
+struct Covers {
+  uintptr_t from[NC];
+  int words[NC], at[NC];
+  int bytes;
+};
+
+// Tile b's plan, by the 32 lanes of warp 0 (lane j holding run j's window
+// [c0, c1) from window_of), and the covers of its windows' compared rows:
+// a window lands at its own alignment and the first level reads it there.
+template <int NC, class P>
+__device__ Covers<NC> plan_tile(const P& p, int ns, long long b, int c0,
+                                int c1, TilePlan& plan) {
+  const int lane = threadIdx.x, j = lane & (kWay - 1);
+  const Merge m = p.merge_of(b);
+  const int len = c1 - c0;
+  const int first = lanes8_before(len);
+  if (lane < kWay) plan.off[j] = first;
+  if (lane == kWay - 1) plan.off[kWay] = first + len;
+  if (lane == 0) plan.out0 = m.out0 + (b - m.b0) * kTile;
+  for (int t = NC + lane / kWay; t < ns; t += 32 / kWay) {
+    plan.src[t][j] = j < m.nr ? p.run(m, j, t) + (c0 - first) : nullptr;
+  }
+  Covers<NC> c;
+  c.bytes = 0;
+#pragma unroll
+  for (int w = 0; w < NC; ++w) {
+    const uintptr_t a =
+        reinterpret_cast<uintptr_t>(j < m.nr ? p.run(m, j, w) + c0 : nullptr);
+    c.from[w] = a & ~static_cast<uintptr_t>(15);
+    const uintptr_t to = (a + 4 * static_cast<uintptr_t>(len) + 15) &
+                         ~static_cast<uintptr_t>(15);
+    c.words[w] = len > 0 ? static_cast<int>(to - c.from[w]) / 4 : 0;
+    c.at[w] = lanes8_before(c.words[w]);
+    if (lane < kWay) {
+      plan.pos[w][j] = c.at[w] + static_cast<int>(a - c.from[w]) / 4;
     }
-    int i = a, j = d - a;
-    int li = i < n1 ? left(i) : 0, rj = j < n2 ? right(j) : 0;
-    Row lrow = row_at<NC>(cmp, li), rrow = row_at<NC>(cmp, rj);
-    const int stop = o_end < hi ? o_end : hi;
-    for (; o < stop; ++o) {
-      const bool take_left =
-          j >= n2 || (i < n1 && !before<NC>(rrow, lrow, false));
-      if (take_left) {
-        out[o] = static_cast<uint16_t>(li);
-        if (++i < n1) {
-          li = left(i);
-          lrow = row_at<NC>(cmp, li);
-        }
-      } else {
-        out[o] = static_cast<uint16_t>(rj);
-        if (++j < n2) {
-          rj = right(j);
-          rrow = row_at<NC>(cmp, rj);
-        }
+    c.bytes += 4 * c.words[w];
+  }
+#pragma unroll
+  for (int d = 1; d < kWay; d <<= 1) {
+    c.bytes += __shfl_xor_sync(0xffffffffu, c.bytes, d);
+  }
+  return c;
+}
+
+// The bulk copies of a planned tile into `stage`, completing on `bar`, by
+// the 32 lanes of warp 0.
+template <int NC>
+__device__ __forceinline__ void load_tile(const Covers<NC>& c,
+                                          uint32_t* stage, uint64_t* bar) {
+  const int lane = threadIdx.x;
+  if (lane == 0) mbar_expect(bar, static_cast<uint32_t>(c.bytes));
+  __syncwarp();
+  if (lane < kWay) {
+#pragma unroll
+    for (int w = 0; w < NC; ++w) {
+      if (c.words[w] > 0) {
+        bulk_load(stage + w * kStride + c.at[w],
+                  reinterpret_cast<const void*>(c.from[w]),
+                  static_cast<uint32_t>(4 * c.words[w]), bar);
       }
     }
   }
 }
 
-// The tile's rows of one stream, window by window, into shared memory
-// (win[j]: the stream's row of window j's first): each thread issues all
-// its loads before it stores any.
-__device__ __forceinline__ void stage_rows(const uint32_t* const* win,
-                                           const int* off, int rows,
+// The merged layout of a tile's compared words in a buffer, which the
+// levels after the first read and write: two words a row interleaved
+// (one 8-byte shared-memory access a row), else a stream an array.
+template <int NC>
+__device__ __forceinline__ Row merged_row(const uint32_t* cmp, int q) {
+  if constexpr (NC == 2) {
+    const uint2 v = reinterpret_cast<const uint2*>(cmp)[q];
+    return Row{v.x, v.y, 0u};
+  } else {
+    return Row{cmp[q], NC >= 3 ? cmp[kStride + q] : 0u,
+               NC >= 3 ? cmp[2 * kStride + q] : 0u};
+  }
+}
+
+template <int NC>
+__device__ __forceinline__ void put_row(uint32_t* cmp, int q, const Row& r) {
+  if constexpr (NC == 2) {
+    reinterpret_cast<uint2*>(cmp)[q] = make_uint2(r.k, r.v0);
+  } else {
+    cmp[q] = r.k;
+    if (NC >= 3) {
+      cmp[kStride + q] = r.v0;
+      cmp[2 * kStride + q] = r.v1;
+    }
+  }
+}
+
+// Rider t of the tile into `to`, in the merged layout: each thread issues
+// all its loads before it stores any.
+__device__ __forceinline__ void stage_rows(const TilePlan& plan, int t,
                                            uint32_t* to) {
-  constexpr int kPer = kTile / kMergeThreads;
+  const int rows = plan.off[kWay];
   uint32_t v[kPer];
+  int j = 0;
 #pragma unroll
   for (int e = 0; e < kPer; ++e) {
     const int q = e * kMergeThreads + threadIdx.x;
     if (q < rows) {
-      int j = 0;
-      while (off[j + 1] <= q) ++j;
-      v[e] = win[j][q - off[j]];
+      while (plan.off[j + 1] <= q) ++j;
+      v[e] = plan.src[t][j][q];
     }
   }
 #pragma unroll
@@ -995,70 +1150,262 @@ __device__ __forceinline__ void stage_rows(const uint32_t* const* win,
   }
 }
 
-template <int NC, class P>
-__global__ void __launch_bounds__(kMergeThreads)
-merge_tiles(P p, int ns, const int* __restrict__ corank) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* cmp = smem;  // NC arrays of kTile words, then the riders' stage
-  uint16_t* order0 = reinterpret_cast<uint16_t*>(smem + NC * kTile);
-  uint16_t* order1 = order0 + kTile;
-  __shared__ int off[kWay + 1];  // window j: [off[j], off[j + 1])
-  // stream t's row of window j's first
-  __shared__ const uint32_t* win[kMaxStreams][kWay];
-  const long long b = blockIdx.x;
-  const Merge m = p.merge_of(b);
-  // its windows [c_j(b), c_j(b + 1)), the next boundary's co-ranks or,
-  // past the merge's stored boundaries, the windows' ends
-  const bool next_stored = b + 1 < m.b0 + m.nb;
-  if (threadIdx.x == 0) {
-    int acc = 0;
-    for (int j = 0; j < kWay; ++j) {
-      const int c0 = j < m.nr ? corank[b * kWay + j] : 0;
-      const int c1 = j >= m.nr      ? 0
-                     : next_stored ? corank[(b + 1) * kWay + j]
-                                   : static_cast<int>(p.hi(j));
-      off[j] = acc;
-      acc += c1 - c0;
-    }
-    off[kWay] = acc;
-  }
-  if (threadIdx.x < ns * kWay) {
-    const int t = threadIdx.x / kWay, j = threadIdx.x % kWay;
-    win[t][j] = j < m.nr ? p.run(m, j, t) + corank[b * kWay + j] : nullptr;
-  }
-  __syncthreads();
-  const int rows = off[kWay];
+// One level of the tile's merge tree, from `src` to `dst`: segment s of
+// the level is windows [s * W, (s + 1) * W) (W = 2, 4, 8), the stable merge
+// of its left half and its right half (ties go left: the lower runs), its
+// rows the merged layout's [off[s * W], off[(s + 1) * W]). Thread t writes
+// the rows [t * run, (t + 1) * run) (at the first level t counts from warp
+// 1, warp 0 planning meanwhile): a merge-path search for its first, then a
+// sequential merge whose two candidate rows sit in registers, one
+// shared-memory load an output, the read positions selected, not branched
+// on. The first level reads each window where its bulk copy put it (pos),
+// the later ones the merged layout. With IDX the rows carry their places
+// in the merged layout of the tile as staged (isrc to idst; at the first
+// level the place is the position itself), for the riders' gather.
+template <int NC, bool IDX, int W>
+__device__ __forceinline__ void merge_level(const uint32_t* src,
+                                            uint32_t* dst,
+                                            const uint16_t* isrc,
+                                            uint16_t* idst,
+                                            const TilePlan& plan, int rows) {
+  const int* off = plan.off;
+  constexpr int run = W == 2 ? kRun1 : kRun;
+  const int o0 = (static_cast<int>(threadIdx.x) - (W == 2 ? 32 : 0)) * run;
+  if (o0 >= 0 && o0 < rows) {
+    int s = 0;
+    while (off[(s + 1) * W] <= o0) ++s;
+    // the segment's rows end at hi; either half's next row is read at pa
+    // (pb) of stream 0's array, its last before ea (eb); stream w's word
+    // is da[w] (db[w]) further; a row at pa has the place pa + sa (first
+    // level: its position in the merged layout)
+    int hi, pa, pb, ea, eb, sa, sb, da[NC], db[NC];
+    auto enter = [&](int seg) {
+      const int lo = off[seg * W], mid = off[seg * W + W / 2];
+      hi = off[(seg + 1) * W];
+      pa = W == 2 ? plan.pos[0][2 * seg] : lo;
+      pb = W == 2 ? plan.pos[0][2 * seg + 1] : mid;
+      ea = pa + (mid - lo);
+      eb = pb + (hi - mid);
+      sa = lo - pa;
+      sb = mid - pb;
 #pragma unroll
-  for (int w = 0; w < NC; ++w) stage_rows(win[w], off, rows, cmp + w * kTile);
-  __syncthreads();
-  // merge tree: windows in pairs, then quads, then all 8
-  merge_level<NC>(cmp, off, 2, nullptr, order0, rows);
-  __syncthreads();
-  merge_level<NC>(cmp, off, 4, order0, order1, rows);
-  __syncthreads();
-  merge_level<NC>(cmp, off, 8, order1, order0, rows);
-  __syncthreads();
-
-  // every stream gathered through the order, stored coalesced: the
-  // compared ones from shared memory, then each rider staged in cmp[0..)
-  const long long out0 = m.out0 + (b - m.b0) * kTile;
-  for (int t = 0; t < ns; ++t) {
-    const uint32_t* from = cmp + (t < NC ? t * kTile : 0);
-    if (t >= NC) {
-      __syncthreads();  // the stage's last readers are done
-      stage_rows(win[t], off, rows, cmp);
-      __syncthreads();
+      for (int w = 0; w < NC; ++w) {
+        da[w] = w * kStride + (W == 2 ? plan.pos[w][2 * seg] - pa : 0);
+        db[w] = w * kStride + (W == 2 ? plan.pos[w][2 * seg + 1] - pb : 0);
+      }
+    };
+    // the row at q of the left half's arrays (from_a), else the right's
+    auto row = [&](bool from_a, int q) {
+      if constexpr (W != 2 && NC == 2) {
+        return merged_row<NC>(src, q);
+      } else {
+        auto at = [&](int w) { return q + (from_a ? da[w] : db[w]); };
+        return Row{src[at(0)], NC >= 2 ? src[at(1)] : 0u,
+                   NC >= 3 ? src[at(2)] : 0u};
+      }
+    };
+    auto place = [&](bool from_a, int q) {
+      return W == 2 ? q + (from_a ? sa : sb) : static_cast<int>(isrc[q]);
+    };
+    enter(s);
+    // a: rows of the left half among the segment's first d (ties: left)
+    const int d = o0 - (pa + sa);
+    int a = d > eb - pb ? d - (eb - pb) : 0, e = d < ea - pa ? d : ea - pa;
+    while (a < e) {
+      const int h = (a + e) >> 1;
+      if (before<NC>(row(false, pb + d - 1 - h), row(true, pa + h), false)) {
+        e = h;
+      } else {
+        a = h + 1;
+      }
     }
-    uint32_t* out = p.out[t];
-    for (int q = threadIdx.x; q < rows; q += kMergeThreads) {
-      out[out0 + q] = from[order0[q]];
+    pa += a;
+    pb += d - a;
+    Row ra = row(true, pa), rb = row(false, pb);
+    int xa = 0, xb = 0;
+    if constexpr (IDX) xa = place(true, pa), xb = place(false, pb);
+    int left = hi - o0;  // outputs before the segment's end
+#pragma unroll
+    for (int k = 0; k < run; ++k) {
+      if (k == left) {  // the segment is done: the next that holds rows
+        if (o0 + k >= rows) break;
+        do enter(++s);
+        while (hi == o0 + k);
+        left = hi - o0;
+        ra = row(true, pa);
+        rb = row(false, pb);
+        if constexpr (IDX) xa = place(true, pa), xb = place(false, pb);
+      }
+      const bool take_a =
+          pb >= eb || (pa < ea && !before<NC>(rb, ra, false));
+      put_row<NC>(dst, o0 + k, take_a ? ra : rb);
+      if constexpr (IDX) {
+        idst[o0 + k] = static_cast<uint16_t>(take_a ? xa : xb);
+      }
+      pa += take_a;
+      pb += !take_a;
+      const Row c = row(take_a, take_a ? pa : pb);
+      if (take_a) {
+        ra = c;
+      } else {
+        rb = c;
+      }
+      if constexpr (IDX) {
+        const int xc = place(take_a, take_a ? pa : pb);
+        if (take_a) {
+          xa = xc;
+        } else {
+          xb = xc;
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// rows words from shared memory to `to`, coalesced: 16 bytes a thread where
+// `to` is 16-byte aligned; gathered through idx when it is given.
+__device__ __forceinline__ void store_rows(const uint32_t* from,
+                                           const uint16_t* idx, uint32_t* to,
+                                           int rows) {
+  auto at = [&](int q) { return from[idx ? idx[q] : q]; };
+  int q = threadIdx.x;
+  if ((reinterpret_cast<uintptr_t>(to) & 15) == 0) {
+    const int vecs = rows >> 2;
+    for (int v = threadIdx.x; v < vecs; v += kMergeThreads) {
+      reinterpret_cast<uint4*>(to)[v] =
+          idx ? make_uint4(at(4 * v), at(4 * v + 1), at(4 * v + 2),
+                           at(4 * v + 3))
+              : reinterpret_cast<const uint4*>(from)[v];
+    }
+    q += vecs << 2;
+  }
+  for (; q < rows; q += kMergeThreads) to[q] = at(q);
+}
+
+// The compared streams of a tile from the merged layout to out[t] + out0:
+// 16 bytes a thread where the outputs are 16-byte aligned.
+template <int NC>
+__device__ __forceinline__ void store_compared(const uint32_t* cmp,
+                                               uint32_t* const* out,
+                                               long long out0, int rows) {
+  if constexpr (NC == 2) {
+    uint32_t* to0 = out[0] + out0;
+    uint32_t* to1 = out[1] + out0;
+    int q = threadIdx.x;
+    if (((reinterpret_cast<uintptr_t>(to0) |
+          reinterpret_cast<uintptr_t>(to1)) & 15) == 0) {
+      const int vecs = rows >> 2;
+      const uint4* from = reinterpret_cast<const uint4*>(cmp);
+      for (int v = threadIdx.x; v < vecs; v += kMergeThreads) {
+        const uint4 a = from[2 * v], b = from[2 * v + 1];
+        reinterpret_cast<uint4*>(to0)[v] = make_uint4(a.x, a.z, b.x, b.z);
+        reinterpret_cast<uint4*>(to1)[v] = make_uint4(a.y, a.w, b.y, b.w);
+      }
+      q += vecs << 2;
+    }
+    for (; q < rows; q += kMergeThreads) {
+      to0[q] = cmp[2 * q];
+      to1[q] = cmp[2 * q + 1];
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < NC; ++t) {
+      store_rows(cmp + t * kStride, nullptr, out[t] + out0, rows);
     }
   }
 }
 
-constexpr size_t merge_smem(int nc) {
-  return static_cast<size_t>(nc) * kTile * sizeof(uint32_t) +
-         2 * kTile * sizeof(uint16_t);
+// Stage buffers a CTA: two at ncmp = 1, where the next tile's copies land
+// during this tile's whole merge and 4 CTAs still share an SM; one above,
+// where a second would cost a CTA an SM (3 to 2 at ncmp = 2), so the
+// copies overlap the tile's store and the other CTAs' merges (each
+// measured the faster on the H100: PERF.md, the tile merge's findings).
+__host__ __device__ constexpr int merge_stages(int nc) {
+  return nc == 1 ? 2 : 1;
+}
+
+constexpr size_t merge_smem(int nc, bool with_idx) {
+  return (merge_stages(nc) + 1) * static_cast<size_t>(nc) *
+             kStride * sizeof(uint32_t) +
+         (with_idx ? 2 * kStride * sizeof(uint16_t) : 0);
+}
+
+// CTAs resident a SM that the shared memory allows (merge_smem, and 2 KB
+// for the plans and the runtime's own), which the registers a thread must
+// allow too (__launch_bounds__).
+constexpr int merge_ctas(int nc, bool with_idx) {
+  return static_cast<int>((227 << 10) / (merge_smem(nc, with_idx) + 2048));
+}
+
+// The merge of a pass's tiles: a persistent grid, each CTA walking the
+// tiles gridDim.x apart. Warp 0 plans: while warps 1.. merge a tile, it
+// plans the next one (the co-ranks it read into registers a tile before)
+// and issues its bulk copies as soon as a stage buffer is free, then
+// reads the co-ranks of the tile after. A tile's levels go from its stage
+// buffer to the work buffer and back; its compared streams are stored
+// from the work buffer, then each rider is staged there and gathered
+// through the rows' places (IDX).
+template <int NC, bool IDX, class P>
+__global__ void __launch_bounds__(kMergeThreads, merge_ctas(NC, IDX))
+merge_tiles(P p, int ns, const int* __restrict__ corank) {
+  constexpr int kStages = merge_stages(NC);
+  // the stage buffers, the work buffer, then (IDX) 2 place arrays
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* work = smem + kStages * NC * kStride;
+  uint16_t* idx0 = reinterpret_cast<uint16_t*>(work + NC * kStride);
+  uint16_t* idx1 = idx0 + kStride;
+  __shared__ TilePlan plans[2];
+  __shared__ uint64_t landed[kStages];  // a stage buffer's copies are in
+  const long long tiles = p.tiles(), step = gridDim.x;
+  long long b = blockIdx.x;
+  const bool planner = threadIdx.x < 32;
+  int c0 = 0, c1 = 0;  // the planner's run j: window of the next tile
+  Covers<NC> covers;   // the planner's: the next tile's copies
+  if (planner) {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < kStages; ++i) mbar_init(&landed[i]);
+    }
+    __syncwarp();
+    window_of(p, corank, b, c0, c1);
+    covers = plan_tile<NC>(p, ns, b, c0, c1, plans[0]);
+    load_tile<NC>(covers, smem, &landed[0]);
+    if (b + step < tiles) window_of(p, corank, b + step, c0, c1);
+  }
+  __syncthreads();
+  uint32_t parity = 0;  // bit i: the phase of landed[i] to wait for
+  for (int k = 0; b < tiles; b += step, k ^= 1) {
+    const long long next = b + step;
+    const int sk = kStages == 2 ? k : 0, nk = kStages == 2 ? k ^ 1 : 0;
+    uint32_t* cmp = smem + sk * NC * kStride;
+    const TilePlan& plan = plans[k];
+    mbar_wait(&landed[sk], parity >> sk & 1);
+    parity ^= 1u << sk;
+    __syncthreads();  // the last tile is done with plans[k ^ 1], its stage
+    if (planner && next < tiles) {
+      covers = plan_tile<NC>(p, ns, next, c0, c1, plans[k ^ 1]);
+      if (kStages == 2) {
+        load_tile<NC>(covers, smem + nk * NC * kStride, &landed[nk]);
+      }
+      if (next + step < tiles) window_of(p, corank, next + step, c0, c1);
+    }
+    const int rows = plan.off[kWay];
+    // merge tree: windows in pairs, then quads, then all 8
+    merge_level<NC, IDX, 2>(cmp, work, nullptr, idx0, plan, rows);
+    merge_level<NC, IDX, 4>(work, cmp, idx0, idx1, plan, rows);
+    fence_proxy_async();  // the stage buffer's writes before its next copies
+    merge_level<NC, IDX, 8>(cmp, work, idx1, idx0, plan, rows);
+    if (kStages == 1 && planner && next < tiles) {
+      load_tile<NC>(covers, smem, &landed[0]);
+    }
+    store_compared<NC>(work, p.out, plan.out0, rows);
+    for (int t = NC; t < ns; ++t) {
+      __syncthreads();  // the work buffer's last readers are done
+      stage_rows(plan, t, work);
+      __syncthreads();
+      store_rows(work, idx0, p.out[t] + plan.out0, rows);
+    }
+  }
 }
 
 template <int NC, class P>
@@ -1107,15 +1454,35 @@ cudaError_t launch_splits(const P& p, long long merges, long long nb,
   }
 }
 
-template <int NC, class P>
-cudaError_t launch_tiles_nc(const P& p, unsigned grid, int ns,
+template <int NC, bool IDX, class P>
+cudaError_t launch_tiles_nc(const P& p, long long tiles, int ns,
                             const int* corank, cudaStream_t st) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      merge_tiles<NC, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(merge_smem(NC)));
+  // a persistent grid: the CTAs resident at once (cached a device)
+  constexpr size_t smem = merge_smem(NC, IDX);
+  static int resident[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  merge_tiles<NC, P><<<grid, kMergeThreads, merge_smem(NC), st>>>(p, ns,
-                                                                  corank);
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaFuncSetAttribute(
+             merge_tiles<NC, IDX, P>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize,
+             static_cast<int>(smem))) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, merge_tiles<NC, IDX, P>, kMergeThreads, smem)) !=
+            cudaSuccess) {
+      return err;
+    }
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    resident[dev] = sms * per_sm;
+  }
+  const long long grid = tiles < resident[dev] ? tiles : resident[dev];
+  merge_tiles<NC, IDX, P><<<static_cast<unsigned>(grid), kMergeThreads, smem,
+                            st>>>(p, ns, corank);
   return cudaGetLastError();
 }
 
@@ -1123,15 +1490,17 @@ cudaError_t launch_tiles_nc(const P& p, unsigned grid, int ns,
 template <class P>
 cudaError_t launch_tiles(const P& p, long long tiles, int ns, int ncmp,
                          const int* corank, cudaStream_t st) {
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const auto grid = static_cast<unsigned>(tiles);
+  const bool riders = ns > ncmp;
   switch (ncmp) {
     case 1:
-      return launch_tiles_nc<1>(p, grid, ns, corank, st);
+      return riders ? launch_tiles_nc<1, true>(p, tiles, ns, corank, st)
+                    : launch_tiles_nc<1, false>(p, tiles, ns, corank, st);
     case 2:
-      return launch_tiles_nc<2>(p, grid, ns, corank, st);
+      return riders ? launch_tiles_nc<2, true>(p, tiles, ns, corank, st)
+                    : launch_tiles_nc<2, false>(p, tiles, ns, corank, st);
     default:
-      return launch_tiles_nc<3>(p, grid, ns, corank, st);
+      return riders ? launch_tiles_nc<3, true>(p, tiles, ns, corank, st)
+                    : launch_tiles_nc<3, false>(p, tiles, ns, corank, st);
   }
 }
 
