@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lsdradixsort_tpu_torch.core.profiling import COUNTS
+
 _NP_TO_TORCH = {
     np.dtype(np.uint32): torch.uint32,
     np.dtype(np.int32): torch.int32,
@@ -33,7 +35,9 @@ def from_numpy(a, device="cpu") -> torch.Tensor:
 
 def u32_to_i64(t: torch.Tensor) -> torch.Tensor:
     """uint32 values as int64 in [0, 2^32), where every device has
-    compares and arithmetic."""
+    compares and arithmetic. Counted in `int64_bytes`
+    (core/profiling.py)."""
+    COUNTS["int64_bytes"] += 8 * t.numel()
     return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
 
 

@@ -14,6 +14,16 @@ pairs and Nsight captures, SURVEY.md §5).
 
 Per-kernel device times and the idle share of one run are
 `bench/flagship.py` `profile_kernels`.
+
+The port measures itself with the same two tools. `annotate` spans sit on
+the hot path (`lsd.<op>` around each public call, `lsd.<stage>` around the
+stages of a call, `lsd.kernel.<wrapper>` around each kernel launch): they
+reach the profiler's timeline, on its clock, while a profiler runs, and
+cost one flag check otherwise. `COUNTS` holds counters that are always on,
+on every device: `host_syncs` (device values read on the host, each
+through `host_value` or `to_host`) and `int64_bytes` (bytes of the int64
+columns that `core/convert.py` `u32_to_i64` makes). `counts()` copies
+them; a reader takes the difference of two copies.
 """
 from __future__ import annotations
 
@@ -42,11 +52,40 @@ def trace(log_dir: str, create_perfetto_link: bool = False):
         yield
 
 
-@contextlib.contextmanager
+_OFF = contextlib.nullcontext()     # every span while no profiler runs
+HOST_SYNC = "lsd.host_sync"
+
+COUNTS = {"host_syncs": 0, "int64_bytes": 0}
+
+
 def annotate(name: str):
-    """Named region in the profiler timeline (record_function)."""
-    with torch.profiler.record_function(name):
-        yield
+    """Named region in the profiler timeline (record_function) while a
+    profiler runs; else one shared no-op context, so a span on the hot
+    path costs a flag check."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def counts() -> dict:
+    """A copy of the counters."""
+    return dict(COUNTS)
+
+
+def host_value(t: torch.Tensor):
+    """t.item(): a device value read on the host, which waits for the
+    device. Counted in `host_syncs`, inside the span `lsd.host_sync`."""
+    with annotate(HOST_SYNC):
+        COUNTS["host_syncs"] += 1
+        return t.item()
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """t.cpu(): a device tensor copied to the host, counted as
+    `host_value` counts."""
+    with annotate(HOST_SYNC):
+        COUNTS["host_syncs"] += 1
+        return t.cpu()
 
 
 @contextlib.contextmanager

@@ -36,6 +36,7 @@ import functools
 import torch
 
 from lsdradixsort_tpu_torch.core.convert import i64_to_u32
+from lsdradixsort_tpu_torch.core.profiling import annotate
 from lsdradixsort_tpu_torch.kernels import _build
 
 TILE = 1 << 15          # n granularity of the JAX kernel (256 x 128 rows)
@@ -117,6 +118,9 @@ def _entry():
         ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
 
 
+_SPAN = "lsd.kernel.compact_stream_multi"
+
+
 def _launch(mask: torch.Tensor, xs):
     """(count, outs) from the kernel: one launch a group of streams."""
     n, k = xs[0].shape[0], len(xs)
@@ -152,7 +156,8 @@ def compact_stream_multi(mask: torch.Tensor, xs,
     if mask.device.type == "cpu":
         return compact_stream_multi_plain(mask, xs)
     _check(mask, xs)
-    return _launch(mask, xs)[1]
+    with annotate(_SPAN):
+        return _launch(mask, xs)[1]
 
 
 def compact_stream(mask: torch.Tensor, x: torch.Tensor,
@@ -172,4 +177,5 @@ def _compact_rows(mask: torch.Tensor, xs):
     if mask.device.type == "cpu":
         sel = selected(mask)
         return i64_to_u32(sel.sum()), _plain(sel, xs)
-    return _launch(mask, xs)
+    with annotate(_SPAN):
+        return _launch(mask, xs)

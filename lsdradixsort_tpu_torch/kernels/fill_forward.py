@@ -28,6 +28,7 @@ import ctypes
 
 import torch
 
+from lsdradixsort_tpu_torch.core.profiling import annotate
 from lsdradixsort_tpu_torch.kernels import _build
 from lsdradixsort_tpu_torch.kernels.compaction import selected
 
@@ -82,22 +83,23 @@ def fill_forward_last(flag: torch.Tensor, key: torch.Tensor,
         return fill_forward_last_plain(flag, key, val)
     _check(flag, key, val)
     n = flag.shape[0]
-    f = selected(flag).contiguous().view(torch.uint8)
-    key, val = key.contiguous(), val.contiguous()
-    outs = [torch.empty_like(key) for _ in range(3)]
-    with torch.cuda.device(flag.device):
-        # one int32 a tile: each tile's last flagged row, then its carry
-        scratch = torch.empty(max(-(-n // BLOCK_ROWS), 1), dtype=torch.int32,
-                              device=flag.device)
-        fn = _build.function("lsd_fill_forward", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_void_p])
-        stream = torch.cuda.current_stream(flag.device).cuda_stream
-        _build.check(fn(f.data_ptr(), key.data_ptr(), val.data_ptr(),
-                        scratch.data_ptr(), scratch.shape[0],
-                        *(o.data_ptr() for o in outs), n,
-                        ctypes.c_void_p(stream)), "lsd_fill_forward")
+    with annotate("lsd.kernel.fill_forward_last"):
+        f = selected(flag).contiguous().view(torch.uint8)
+        key, val = key.contiguous(), val.contiguous()
+        outs = [torch.empty_like(key) for _ in range(3)]
+        with torch.cuda.device(flag.device):
+            # one int32 a tile: each tile's last flagged row, then its carry
+            scratch = torch.empty(max(-(-n // BLOCK_ROWS), 1),
+                                  dtype=torch.int32, device=flag.device)
+            fn = _build.function("lsd_fill_forward", [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_void_p])
+            stream = torch.cuda.current_stream(flag.device).cuda_stream
+            _build.check(fn(f.data_ptr(), key.data_ptr(), val.data_ptr(),
+                            scratch.data_ptr(), scratch.shape[0],
+                            *(o.data_ptr() for o in outs), n,
+                            ctypes.c_void_p(stream)), "lsd_fill_forward")
     LAUNCHES["fill_forward_last"] += 1
     return tuple(outs)

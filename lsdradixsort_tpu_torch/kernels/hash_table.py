@@ -31,6 +31,7 @@ import math
 import torch
 
 from lsdradixsort_tpu_torch.core.convert import i64_to_u32, u32_to_i64
+from lsdradixsort_tpu_torch.core.profiling import annotate
 from lsdradixsort_tpu_torch.kernels import _build
 
 LANES = 128
@@ -136,20 +137,22 @@ def probe_table(tk: torch.Tensor, tv: torch.Tensor, cnt: torch.Tensor,
     if probe_keys.device.type == "cpu":
         return probe_table_plain(tk, tv, cnt, probe_keys, semi)
     _check(tk, tv, cnt, probe_keys)
-    tk, tv, cnt = tk.contiguous(), tv.contiguous(), cnt.contiguous()
-    probe_keys = probe_keys.contiguous()
-    match = torch.empty_like(probe_keys)
-    val = torch.empty_like(probe_keys)
-    with torch.cuda.device(probe_keys.device):
-        fn = _build.function("lsd_probe_table", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        stream = torch.cuda.current_stream(probe_keys.device).cuda_stream
-        _build.check(fn(tk.data_ptr(), tv.data_ptr(), cnt.data_ptr(),
-                        probe_keys.data_ptr(), match.data_ptr(),
-                        val.data_ptr(), probe_keys.shape[0], tk.shape[0],
-                        int(semi), ctypes.c_void_p(stream)),
-                     "lsd_probe_table")
+    with annotate("lsd.kernel.probe_table"):
+        tk, tv, cnt = tk.contiguous(), tv.contiguous(), cnt.contiguous()
+        probe_keys = probe_keys.contiguous()
+        match = torch.empty_like(probe_keys)
+        val = torch.empty_like(probe_keys)
+        with torch.cuda.device(probe_keys.device):
+            fn = _build.function("lsd_probe_table", [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p])
+            stream = torch.cuda.current_stream(probe_keys.device).cuda_stream
+            _build.check(fn(tk.data_ptr(), tv.data_ptr(), cnt.data_ptr(),
+                            probe_keys.data_ptr(), match.data_ptr(),
+                            val.data_ptr(), probe_keys.shape[0],
+                            tk.shape[0], int(semi), ctypes.c_void_p(stream)),
+                         "lsd_probe_table")
     LAUNCHES["probe_table"] += 1
     return match, val

@@ -29,6 +29,7 @@ import torch
 
 from lsdradixsort_tpu_torch.core.convert import i64_to_u32, u32_to_i64
 from lsdradixsort_tpu_torch.core.digits import get_digit
+from lsdradixsort_tpu_torch.core.profiling import annotate
 from lsdradixsort_tpu_torch.kernels import _build
 
 LANES = 128
@@ -118,23 +119,24 @@ def block_digit_histograms(keys: torch.Tensor, r: int, group: int,
         return block_digit_histograms_plain(keys, r, group, block_size,
                                             counter_bits)
     _check(keys, r, block_size, counter_bits)
-    keys = keys.contiguous()
-    n = keys.shape[0]
-    out = torch.empty((n // block_size, 1 << r), dtype=torch.uint32,
-                      device=keys.device)
-    # the device-memory kernel (r > SHARED_MAX_R) takes no plan
-    plan = (hist_plan(n, block_size, r) if r <= SHARED_MAX_R
-            else HistPlan(LANE, 0, 0, 0, 0))
-    with torch.cuda.device(keys.device):
-        fn = _build.function("lsd_block_histograms", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        stream = torch.cuda.current_stream(keys.device).cuda_stream
-        _build.check(fn(keys.data_ptr(), out.data_ptr(), n, block_size, r,
-                        group, plan.mode, plan.unit, plan.parts,
-                        ctypes.c_void_p(stream)),
-                     "lsd_block_histograms")
+    with annotate("lsd.kernel.block_digit_histograms"):
+        keys = keys.contiguous()
+        n = keys.shape[0]
+        out = torch.empty((n // block_size, 1 << r), dtype=torch.uint32,
+                          device=keys.device)
+        # the device-memory kernel (r > SHARED_MAX_R) takes no plan
+        plan = (hist_plan(n, block_size, r) if r <= SHARED_MAX_R
+                else HistPlan(LANE, 0, 0, 0, 0))
+        with torch.cuda.device(keys.device):
+            fn = _build.function("lsd_block_histograms", [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+            stream = torch.cuda.current_stream(keys.device).cuda_stream
+            _build.check(fn(keys.data_ptr(), out.data_ptr(), n, block_size,
+                            r, group, plan.mode, plan.unit, plan.parts,
+                            ctypes.c_void_p(stream)),
+                         "lsd_block_histograms")
     LAUNCHES["block_digit_histograms"] += 1
     return out
 

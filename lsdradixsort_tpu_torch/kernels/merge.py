@@ -48,6 +48,7 @@ import ctypes
 import torch
 
 from lsdradixsort_tpu_torch.core.convert import gather, row_order, take_rows
+from lsdradixsort_tpu_torch.core.profiling import annotate
 from lsdradixsort_tpu_torch.kernels import _build
 
 KWAY = 8              # fan-in per merge pass
@@ -151,7 +152,8 @@ def merge_path_splits(keys: torch.Tensor, vals, run_len: int,
     n = keys.shape[0]
     out = torch.empty((tile_plan(n, run_len)[1], KWAY), dtype=torch.int32,
                       device=keys.device)
-    with torch.cuda.device(keys.device):
+    with annotate("lsd.kernel.merge_path_splits"), \
+            torch.cuda.device(keys.device):
         if _build.library().lsd_merge_tile() != TILE:
             raise RuntimeError("csrc/merge.cu kTile differs from TILE")
         fn = _build.function("lsd_merge_path_splits", [
@@ -204,18 +206,19 @@ def merge_pass_multi(keys: torch.Tensor, vals, run_len: int,
         return merge_pass_multi_plain(keys, vals, run_len, ncmp)
     ncmp = _check(keys, vals, run_len, ncmp)
     streams = [keys, *vals]
-    splits = merge_path_splits(keys, vals, run_len, ncmp)
-    outs = [torch.empty_like(s) for s in streams]
-    with torch.cuda.device(keys.device):
-        fn = _build.function("lsd_merge_pass", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_void_p])
-        stream = torch.cuda.current_stream(keys.device).cuda_stream
-        _build.check(fn(_build.pointers(streams), _build.pointers(outs),
-                        len(streams), keys.shape[0], run_len, ncmp,
-                        splits.data_ptr(), ctypes.c_void_p(stream)),
-                     "lsd_merge_pass")
+    with annotate("lsd.kernel.merge_pass_multi"):
+        splits = merge_path_splits(keys, vals, run_len, ncmp)
+        outs = [torch.empty_like(s) for s in streams]
+        with torch.cuda.device(keys.device):
+            fn = _build.function("lsd_merge_pass", [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p])
+            stream = torch.cuda.current_stream(keys.device).cuda_stream
+            _build.check(fn(_build.pointers(streams), _build.pointers(outs),
+                            len(streams), keys.shape[0], run_len, ncmp,
+                            splits.data_ptr(), ctypes.c_void_p(stream)),
+                         "lsd_merge_pass")
     LAUNCHES["merge_pass_multi"] += 1
     return outs[0], outs[1:]
 
@@ -365,8 +368,9 @@ def window_table(first, end, lo_rank: int,
     tab[0, KWAY:KWAY + S] = -(-(torch.tensor(end) - torch.tensor(first))
                               // blk)
     pre = lo_rank - sum(first)
-    tab[0, 16] = (-pre) % LANES
-    tab[0, 17] = (pre + int(tab[0, 16])) // LANES
+    m = (-pre) % LANES
+    tab[0, 16] = m
+    tab[0, 17] = (pre + m) // LANES
     return tab.to(torch.int32)
 
 
@@ -477,7 +481,8 @@ def merge_runs_splits(run_streams, tables, *, chunk0: int, nchunks: int,
                       device=key.device)
     ins = [run_streams[t][s] for s in range(S) for t in range(ncmp)]
     rows = ctypes.c_longlong * S
-    with torch.cuda.device(key.device):
+    with annotate("lsd.kernel.merge_runs_splits"), \
+            torch.cuda.device(key.device):
         if _build.library().lsd_merge_tile() != TILE:
             raise RuntimeError("csrc/merge.cu kTile differs from TILE")
         fn = _build.function("lsd_merge_runs_splits", [
@@ -538,23 +543,24 @@ def merge_pass_runs(run_streams, tables, *, chunk0: int, nchunks: int,
     if key.device.type == "cpu":
         return merge_pass_runs_plain(run_streams, tables, buf_elems=buf_elems,
                                      **kw)
-    splits = merge_runs_splits(run_streams, tables, **kw)
     S, ns = len(lens), len(run_streams)
     ins = [run_streams[t][s] for s in range(S) for t in range(ns)]
-    outs = [torch.empty(count, dtype=torch.uint32, device=key.device)
-            for _ in range(ns)]
     rows = ctypes.c_longlong * S
-    with torch.cuda.device(key.device):
-        fn = _build.function("lsd_merge_pass_runs", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p])
-        stream = torch.cuda.current_stream(key.device).cuda_stream
-        _build.check(fn(_build.pointers(ins), _build.pointers(outs), S, ns,
-                        rows(*lens), rows(*first), rows(*end), lo_rank,
-                        count, ncmp, splits.data_ptr(),
-                        ctypes.c_void_p(stream)),
-                     "lsd_merge_pass_runs")
+    with annotate("lsd.kernel.merge_pass_runs"):
+        splits = merge_runs_splits(run_streams, tables, **kw)
+        outs = [torch.empty(count, dtype=torch.uint32, device=key.device)
+                for _ in range(ns)]
+        with torch.cuda.device(key.device):
+            fn = _build.function("lsd_merge_pass_runs", [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p])
+            stream = torch.cuda.current_stream(key.device).cuda_stream
+            _build.check(fn(_build.pointers(ins), _build.pointers(outs), S,
+                            ns, rows(*lens), rows(*first), rows(*end),
+                            lo_rank, count, ncmp, splits.data_ptr(),
+                            ctypes.c_void_p(stream)),
+                         "lsd_merge_pass_runs")
     LAUNCHES["merge_pass_runs"] += 1
     return outs

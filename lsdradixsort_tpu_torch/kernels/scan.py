@@ -46,6 +46,7 @@ import functools
 import torch
 
 from lsdradixsort_tpu_torch.core.convert import i64_to_u32, u32_to_i64
+from lsdradixsort_tpu_torch.core.profiling import annotate
 from lsdradixsort_tpu_torch.kernels import _build
 
 LANES = 128
@@ -156,17 +157,19 @@ def exclusive_scan(x: torch.Tensor, block_rows: int = 512,
     _check(x)
     if x.dtype in _NARROW:
         return exclusive_scan(x.to(torch.int32)).to(x.dtype)
-    x = x.contiguous()
-    n = x.shape[0]
-    out = torch.empty_like(x)
-    # the small scans are bound by host time: the raw stream handle, the
-    # device passed to the C entry, the status scratch kept per stream
-    words, fn = _lookback()
-    dev = x.device.index
-    stream = torch._C._cuda_getCurrentRawStream(dev)
-    status = _build.lookback_status(dev, stream, -(-n // words) + 2)
-    _build.check(fn(x.data_ptr(), out.data_ptr(), status.data_ptr(), n, dev,
-                    stream), "lsd_exclusive_scan")
+    with annotate("lsd.kernel.exclusive_scan"):
+        x = x.contiguous()
+        n = x.shape[0]
+        out = torch.empty_like(x)
+        # the small scans are bound by host time: the raw stream handle,
+        # the device passed to the C entry, the status scratch kept per
+        # stream
+        words, fn = _lookback()
+        dev = x.device.index
+        stream = torch._C._cuda_getCurrentRawStream(dev)
+        status = _build.lookback_status(dev, stream, -(-n // words) + 2)
+        _build.check(fn(x.data_ptr(), out.data_ptr(), status.data_ptr(), n,
+                        dev, stream), "lsd_exclusive_scan")
     LAUNCHES["exclusive_scan"] += 1
     return out
 
@@ -206,16 +209,18 @@ def exclusive_scan_hierarchical(x: torch.Tensor, block_rows: int = 512,
     _check(x)
     if x.dtype in _NARROW:
         return exclusive_scan_hierarchical(x.to(torch.int32)).to(x.dtype)
-    x = x.contiguous()
-    n = x.shape[0]
-    out = torch.empty_like(x)
-    dev = x.device.index
-    # two round parities of one total a CTA
-    scratch = torch.empty(2 * hierarchical_ctas(x.device), dtype=x.dtype,
-                          device=x.device)
-    _build.check(_hier()[1](x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                            n, dev, torch._C._cuda_getCurrentRawStream(dev)),
-                 "lsd_scan_hierarchical")
+    with annotate("lsd.kernel.exclusive_scan_hierarchical"):
+        x = x.contiguous()
+        n = x.shape[0]
+        out = torch.empty_like(x)
+        dev = x.device.index
+        # two round parities of one total a CTA
+        scratch = torch.empty(2 * hierarchical_ctas(x.device), dtype=x.dtype,
+                              device=x.device)
+        _build.check(_hier()[1](x.data_ptr(), out.data_ptr(),
+                                scratch.data_ptr(), n, dev,
+                                torch._C._cuda_getCurrentRawStream(dev)),
+                     "lsd_scan_hierarchical")
     LAUNCHES["exclusive_scan_hierarchical"] += 1
     return out
 
@@ -240,18 +245,19 @@ def block_scans(x: torch.Tensor, seg: int):
     if x.dtype in _NARROW:
         return tuple(t.to(x.dtype) for t in block_scans(x.to(torch.int32),
                                                         seg))
-    x = x.contiguous()
     # the histogram rows' scans are bound by host time: the C entry cached,
     # the raw stream handle, the device passed to the C entry, one
     # allocation (scans, then totals) split in two only once the kernel is
     # launched (cheaper to issue than two allocations, or than two slices
     # of one: bench/small_ops.py `host_parts`)
-    buf = x.new_empty(n + n // seg)
-    dev = x.get_device()
-    ptr = buf.data_ptr()
-    _build.check(_seg_scan()(x.data_ptr(), ptr, ptr + 4 * n, n, seg, dev,
-                             torch._C._cuda_getCurrentRawStream(dev)),
-                 "lsd_seg_scan")
+    with annotate("lsd.kernel.block_scans"):
+        x = x.contiguous()
+        buf = x.new_empty(n + n // seg)
+        dev = x.get_device()
+        ptr = buf.data_ptr()
+        _build.check(_seg_scan()(x.data_ptr(), ptr, ptr + 4 * n, n, seg, dev,
+                                 torch._C._cuda_getCurrentRawStream(dev)),
+                     "lsd_seg_scan")
     LAUNCHES["block_prefix_sums"] += 1
     return buf.split_with_sizes([n, n // seg])
 

@@ -43,6 +43,7 @@ import ctypes
 
 import torch
 
+from lsdradixsort_tpu_torch.core.profiling import annotate, host_value
 from lsdradixsort_tpu_torch.kernels import _build
 
 LANES = 128
@@ -97,7 +98,7 @@ def _shuffle_plain(x, src, dst, lens, fixed, keep, out_items):
     hi = torch.minimum(torch.minimum(n, in_items - s), out_items - d)
     n = (hi - lo).clamp(min=0)
     s, d = s + lo, d + lo
-    total = int(n.sum())
+    total = host_value(n.sum())
     run = torch.repeat_interleave(torch.arange(n.shape[0], device=x.device), n,
                                   output_size=total)
     within = (torch.arange(total, device=x.device)
@@ -133,7 +134,7 @@ def shuffle_elem_runs_plain(x, src, dst, run_len, out_elems: int,
 def _launch(name: str, x, args) -> None:
     """Call C entry point lsd_<name>: five pointers, then long longs, then
     the stream."""
-    with torch.cuda.device(x.device):
+    with annotate("lsd.kernel." + name), torch.cuda.device(x.device):
         fn = _build.function(f"lsd_{name}", [ctypes.c_void_p] * 5 + [
             ctypes.c_longlong] * (len(args) - 5) + [ctypes.c_void_p])
         stream = torch.cuda.current_stream(x.device).cuda_stream

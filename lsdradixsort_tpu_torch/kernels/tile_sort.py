@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from lsdradixsort_tpu_torch.core.convert import row_order, take_rows
+from lsdradixsort_tpu_torch.core.profiling import annotate
 from lsdradixsort_tpu_torch.kernels import _build
 
 LANES = 128
@@ -294,7 +295,8 @@ def sort_tiles(keys: torch.Tensor, tile_rows: int = 128,
     if keys.device.type == "cpu":
         return sort_tiles_plain(keys, tile_rows)
     tile_log2 = _check_tiles(keys, (), tile_rows)
-    (ok,), _ = _sort_words([keys], [], tile_log2, flip1=False)
+    with annotate("lsd.kernel.sort_tiles"):
+        (ok,), _ = _sort_words([keys], [], tile_log2, flip1=False)
     LAUNCHES["sort_tiles"] += 1
     return ok
 
@@ -309,7 +311,8 @@ def sort_tiles_kv(keys: torch.Tensor, values: torch.Tensor,
     if keys.device.type == "cpu":
         return sort_tiles_kv_plain(keys, values, tile_rows)
     tile_log2 = _check_tiles(keys, (values,), tile_rows)
-    (ok, ov), _ = _sort_words([keys, values], [], tile_log2, flip1=True)
+    with annotate("lsd.kernel.sort_tiles_kv"):
+        (ok, ov), _ = _sort_words([keys, values], [], tile_log2, flip1=True)
     LAUNCHES["sort_tiles_kv"] += 1
     return ok, ov
 
@@ -330,6 +333,7 @@ def sort_tiles_multi(keys: torch.Tensor, values, tile_rows: int = 128,
     ncmp = _ncmp(values, ncmp)
     compared, riders = values[:ncmp - 1], values[ncmp - 1:]
     words = [keys, *compared] + ([None] if riders else [])
-    out, out_r = _sort_words(words, riders, tile_log2, flip1=False)
+    with annotate("lsd.kernel.sort_tiles_multi"):
+        out, out_r = _sort_words(words, riders, tile_log2, flip1=False)
     LAUNCHES["sort_tiles_multi"] += 1
     return out[0], [*out[1:], *out_r]

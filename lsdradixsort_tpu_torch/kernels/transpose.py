@@ -19,6 +19,7 @@ import functools
 
 import torch
 
+from lsdradixsort_tpu_torch.core.profiling import annotate
 from lsdradixsort_tpu_torch.kernels import _build
 
 LAUNCHES = {"transpose_tiled": 0}
@@ -58,15 +59,16 @@ def transpose_any(a: torch.Tensor) -> torch.Tensor:
     if not a.is_cuda:
         return transpose_plain(a)
     _check(a)
-    a = a.contiguous()
     rows, cols = a.shape
     # the histogram's transpose is bound by host time: the C entry cached,
     # the raw stream handle, the device passed to the C entry
-    out = a.new_empty((cols, rows))
-    dev = a.get_device()
-    _build.check(_transpose()(a.data_ptr(), out.data_ptr(), rows, cols, dev,
-                              torch._C._cuda_getCurrentRawStream(dev)),
-                 "lsd_transpose")
+    with annotate("lsd.kernel.transpose_any"):
+        a = a.contiguous()
+        out = a.new_empty((cols, rows))
+        dev = a.get_device()
+        stream = torch._C._cuda_getCurrentRawStream(dev)
+        _build.check(_transpose()(a.data_ptr(), out.data_ptr(), rows, cols,
+                                  dev, stream), "lsd_transpose")
     LAUNCHES["transpose_tiled"] += 1
     return out
 

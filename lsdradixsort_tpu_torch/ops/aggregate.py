@@ -21,6 +21,7 @@ from lsdradixsort_tpu_torch.core import keycodec
 from lsdradixsort_tpu_torch.core.convert import (gather, iota_u32,
                                                  stable_order, u32_to_i64,
                                                  wrap_u32)
+from lsdradixsort_tpu_torch.core.profiling import annotate
 from lsdradixsort_tpu_torch.kernels.scan import exclusive_scan
 from lsdradixsort_tpu_torch.ops.filter import compact, range_mask
 from lsdradixsort_tpu_torch.ops.sort import merge_sort_keys, merge_sort_multi
@@ -86,40 +87,41 @@ def group_by_aggregate(group_keys: torch.Tensor, values: torch.Tensor,
     order-independent sum exists."""
     if reduction not in _REDUCTIONS:
         raise ValueError(f"unknown reduction {reduction!r}")
-    kdt, vdt = group_keys.dtype, values.dtype
-    codes = keycodec.encode(group_keys)
-    if reduction == "sum":
-        if vdt == torch.float32:
-            raise TypeError("f32 SUM is order-dependent; no bit-exact "
-                            "spelling (cast to int or use min/max/count)")
-        values = values.view(torch.uint32)
-    elif reduction in ("min", "max"):
-        values = keycodec.encode(values)
+    with annotate("lsd.group_by_aggregate"):
+        kdt, vdt = group_keys.dtype, values.dtype
+        codes = keycodec.encode(group_keys)
+        if reduction == "sum":
+            if vdt == torch.float32:
+                raise TypeError("f32 SUM is order-dependent; no bit-exact "
+                                "spelling (cast to int or use min/max/count)")
+            values = values.view(torch.uint32)
+        elif reduction in ("min", "max"):
+            values = keycodec.encode(values)
 
-    if reduction == "count":
-        if engine == "merge":
-            sk = merge_sort_keys(codes, tile_log2=tile_log2)
+        if reduction == "count":
+            if engine == "merge":
+                sk = merge_sort_keys(codes, tile_log2=tile_log2)
+            else:
+                sk = gather(codes, stable_order([codes]))
+            count, uk, run_end = compact(differs_from_next(sk), sk,
+                                         iota_u32(sk.shape[0], sk.device))
+            ends = u32_to_i64(run_end)
+            # the run before the first ends at position -1
+            before = torch.nn.functional.pad(ends[:-1], (1, 0), value=-1)
+            return count, keycodec.decode(uk, kdt), wrap_u32(ends - before)
+        sk, sv = _sort_by(codes, values, engine, tile_log2,
+                          by_value=reduction != "sum")
+        if reduction == "sum":
+            count, uk, run_end_sums = compact(differs_from_next(sk), sk,
+                                              running_sum(sv))
+            return (count, keycodec.decode(uk, kdt),
+                    run_differences(run_end_sums).view(vdt))
+        if reduction == "min":
+            # sorted by (key, value): a run's min is its first value
+            count, uk, agg = compact(starts_run(sk), sk, sv)
         else:
-            sk = gather(codes, stable_order([codes]))
-        count, uk, run_end = compact(differs_from_next(sk), sk,
-                                     iota_u32(sk.shape[0], sk.device))
-        ends = u32_to_i64(run_end)
-        # the run before the first ends at position -1
-        before = torch.nn.functional.pad(ends[:-1], (1, 0), value=-1)
-        return count, keycodec.decode(uk, kdt), wrap_u32(ends - before)
-    sk, sv = _sort_by(codes, values, engine, tile_log2,
-                      by_value=reduction != "sum")
-    if reduction == "sum":
-        count, uk, run_end_sums = compact(differs_from_next(sk), sk,
-                                          running_sum(sv))
-        return (count, keycodec.decode(uk, kdt),
-                run_differences(run_end_sums).view(vdt))
-    if reduction == "min":
-        # sorted by (key, value): a run's min is its first value
-        count, uk, agg = compact(starts_run(sk), sk, sv)
-    else:
-        count, uk, agg = compact(differs_from_next(sk), sk, sv)
-    return count, keycodec.decode(uk, kdt), keycodec.decode(agg, vdt)
+            count, uk, agg = compact(differs_from_next(sk), sk, sv)
+        return count, keycodec.decode(uk, kdt), keycodec.decode(agg, vdt)
 
 
 def filtered_group_by_sum(keys: torch.Tensor, group_keys: torch.Tensor,
@@ -133,27 +135,33 @@ def filtered_group_by_sum(keys: torch.Tensor, group_keys: torch.Tensor,
     a real group 0xFFFFFFFF still aggregates, its kept rows sorting before
     the rejected ones. Returns (num_groups, unique_group_keys_sorted,
     sums). n < 2^31."""
-    n = keys.shape[0]
-    keep = range_mask(keys, lo, hi)
-    gk = torch.where(keep, group_keys.view(torch.int32),
-                     -1).view(torch.uint32)
-    packed = (keep.logical_not().to(torch.int32) * _SIGN
-              | torch.arange(n, dtype=torch.int32, device=keys.device)
-              ).view(torch.uint32)
-    del keep
-    if engine == "merge":
-        sk, (spacked, sv) = merge_sort_multi(gk, [packed, values],
-                                             tile_log2=tile_log2)
-    elif engine == "xla":
-        perm = stable_order([gk, packed])
-        sk, spacked, sv = (gather(x, perm) for x in (gk, packed, values))
-        del perm
-    else:
-        raise ValueError(f"unknown engine {engine!r}; pick 'xla' or 'merge'")
-    del gk, packed
-    kept = spacked.view(torch.int32) >= 0
-    sums = running_sum(torch.where(kept, sv.view(torch.int32), 0)
-                       .view(torch.uint32))
-    is_last = (differs_from_next(sk) | differs_from_next(kept)) & kept
-    count, uk, run_end_sums = compact(is_last, sk, sums)
-    return count, uk, run_differences(run_end_sums)
+    with annotate("lsd.filtered_group_by_sum"):
+        n = keys.shape[0]
+        with annotate("lsd.agg.mask"):
+            keep = range_mask(keys, lo, hi)
+            gk = torch.where(keep, group_keys.view(torch.int32),
+                             -1).view(torch.uint32)
+            packed = (keep.logical_not().to(torch.int32) * _SIGN
+                      | torch.arange(n, dtype=torch.int32, device=keys.device)
+                      ).view(torch.uint32)
+            del keep
+        if engine == "merge":
+            sk, (spacked, sv) = merge_sort_multi(gk, [packed, values],
+                                                 tile_log2=tile_log2)
+        elif engine == "xla":
+            perm = stable_order([gk, packed])
+            sk, spacked, sv = (gather(x, perm) for x in (gk, packed, values))
+            del perm
+        else:
+            raise ValueError(f"unknown engine {engine!r}; pick 'xla' or "
+                             "'merge'")
+        del gk, packed
+        with annotate("lsd.agg.sums"):
+            kept = spacked.view(torch.int32) >= 0
+            sums = running_sum(torch.where(kept, sv.view(torch.int32), 0)
+                               .view(torch.uint32))
+        with annotate("lsd.agg.bounds"):
+            is_last = (differs_from_next(sk) | differs_from_next(kept)) & kept
+        count, uk, run_end_sums = compact(is_last, sk, sums)
+        with annotate("lsd.agg.differences"):
+            return count, uk, run_differences(run_end_sums)

@@ -45,6 +45,7 @@ import time
 import torch
 
 from lsdradixsort_tpu_torch.core.convert import i64_to_u32
+from lsdradixsort_tpu_torch.core.profiling import to_host
 from lsdradixsort_tpu_torch.kernels import merge as M
 from lsdradixsort_tpu_torch.ops.sort import _merge_sort_multi
 
@@ -111,7 +112,7 @@ def merge_runs_chunked(run_streams, *, chunk_log2: int = 19,
     _debug(f"exact-rank tables: S={S} nchunks={nch}")
     tab, _ = M.merge_tables_exact_runs(run_streams[0], C, blk=blk,
                                        fanout=fanout)
-    tab = tab.cpu()                       # (nch+pad+8, NCOLS), tiny
+    tab = to_host(tab)                    # (nch+pad+8, NCOLS), tiny
     _phase("tables", dev)
 
     streams = [list(rs) for rs in run_streams]

@@ -27,6 +27,7 @@ import torch
 
 from lsdradixsort_tpu_torch.core.convert import (gather, i64_to_u32,
                                                  u32_to_i64)
+from lsdradixsort_tpu_torch.core.profiling import host_value
 from lsdradixsort_tpu_torch.kernels.compaction import (TILE, _compact_rows,
                                                        selected)
 from lsdradixsort_tpu_torch.kernels.hash_table import (build_table,
@@ -85,7 +86,7 @@ def _in_set_mask(keys: torch.Tensor, set_keys: torch.Tensor) -> torch.Tensor:
     the planned depth."""
     nset = set_keys.shape[0]
     tk, tv, cnt, ok = build_table(set_keys, set_keys, plan_rows(nset))
-    if bool(ok):
+    if host_value(ok):
         match, _ = probe_table(tk, tv, cnt, keys, semi=True)
         return match.view(torch.int32) == 1
     ss = torch.sort(u32_to_i64(set_keys)).values

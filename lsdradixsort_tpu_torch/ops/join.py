@@ -30,6 +30,7 @@ import torch
 from lsdradixsort_tpu_torch.core.convert import (gather, iota_u32,
                                                  stable_order, u32_to_i64,
                                                  wrap_u32)
+from lsdradixsort_tpu_torch.core.profiling import annotate, host_value
 from lsdradixsort_tpu_torch.kernels.fill_forward import fill_forward_last
 from lsdradixsort_tpu_torch.kernels.hash_table import (build_table,
                                                        plan_rows,
@@ -70,19 +71,21 @@ def _probe_order(matched_or_probe: torch.Tensor,
                  spacked: torch.Tensor) -> torch.Tensor:
     """Order that brings the selected rows to the front by probe position
     (the rest after them)."""
-    pos = spacked.view(torch.int32) & _LOW
-    key = torch.where(matched_or_probe, pos, _LOW)
-    return torch.sort(key, stable=True).indices
+    with annotate("lsd.join.probe_order"):
+        pos = spacked.view(torch.int32) & _LOW
+        key = torch.where(matched_or_probe, pos, _LOW)
+        return torch.sort(key, stable=True).indices
 
 
 def _sort_merge_match(keys, packed, val, engine, tile_log2):
     """The join's core on (key, packed, val) rows: (sk, spacked, sval,
     is_build, matched, build_val)."""
     sk, spacked, (sval,) = _main_sort(keys, packed, [val], engine, tile_log2)
-    is_build = spacked.view(torch.int32) >= 0
-    bk_fill, seg_bval, has_build = fill_forward_last(is_build, sk, sval)
-    matched = (is_build.logical_not() & (has_build.view(torch.int32) == 1)
-               & (bk_fill.view(torch.int32) == sk.view(torch.int32)))
+    with annotate("lsd.join.match"):
+        is_build = spacked.view(torch.int32) >= 0
+        bk_fill, seg_bval, has_build = fill_forward_last(is_build, sk, sval)
+        matched = (is_build.logical_not() & (has_build.view(torch.int32) == 1)
+                   & (bk_fill.view(torch.int32) == sk.view(torch.int32)))
     return sk, spacked, sval, is_build, matched, seg_bval
 
 
@@ -92,25 +95,29 @@ def hash_join(build_keys: torch.Tensor, build_vals: torch.Tensor,
     """Inner equi-join on uint32 keys, unique build keys. Returns (count,
     probe_keys, probe_vals, build_vals) in probe order, probe length; rows
     past count are unspecified."""
-    nb, np_ = build_keys.shape[0], probe_keys.shape[0]
-    if engine == "vmem":
-        tk, tv, cnt, ok = build_table(build_keys, build_vals, plan_rows(nb))
-        if bool(ok):
-            match, bval = probe_table(tk, tv, cnt, probe_keys)
-            return compact(match.view(torch.int32) == 1, probe_keys,
-                           probe_vals, bval)
-        return hash_join(build_keys, build_vals, probe_keys, probe_vals,
-                         engine="xla", tile_log2=tile_log2)
-    keys = torch.cat([build_keys, probe_keys])
-    packed = _tagged_positions(nb, np_, keys.device)
-    val = torch.cat([build_vals, probe_vals])
-    sk, spacked, sval, _, matched, seg_bval = _sort_merge_match(
-        keys, packed, val, engine, tile_log2)
-    del keys, packed, val
-    count = wrap_u32(matched.sum())
-    order = _probe_order(matched, spacked)[:np_]
-    return count, gather(sk, order), gather(sval, order), gather(seg_bval,
-                                                                 order)
+    with annotate("lsd.hash_join"):
+        nb, np_ = build_keys.shape[0], probe_keys.shape[0]
+        if engine == "vmem":
+            tk, tv, cnt, ok = build_table(build_keys, build_vals,
+                                          plan_rows(nb))
+            if host_value(ok):
+                match, bval = probe_table(tk, tv, cnt, probe_keys)
+                return compact(match.view(torch.int32) == 1, probe_keys,
+                               probe_vals, bval)
+            return hash_join(build_keys, build_vals, probe_keys, probe_vals,
+                             engine="xla", tile_log2=tile_log2)
+        with annotate("lsd.join.tag"):
+            keys = torch.cat([build_keys, probe_keys])
+            packed = _tagged_positions(nb, np_, keys.device)
+            val = torch.cat([build_vals, probe_vals])
+        sk, spacked, sval, _, matched, seg_bval = _sort_merge_match(
+            keys, packed, val, engine, tile_log2)
+        del keys, packed, val
+        count = wrap_u32(matched.sum())
+        order = _probe_order(matched, spacked)[:np_]
+        with annotate("lsd.join.gather"):
+            return (count, gather(sk, order), gather(sval, order),
+                    gather(seg_bval, order))
 
 
 def probe_lookup(build_keys: torch.Tensor, build_vals: torch.Tensor,
@@ -118,28 +125,32 @@ def probe_lookup(build_keys: torch.Tensor, build_vals: torch.Tensor,
                  tile_log2: int = 15):
     """For every probe row, in probe order: (match uint32 0/1, build_val,
     0 where unmatched). Unique build keys. Engines as in hash_join."""
-    nb, np_ = build_keys.shape[0], probe_keys.shape[0]
-    if engine == "vmem":
-        tk, tv, cnt, ok = build_table(build_keys, build_vals, plan_rows(nb))
-        if bool(ok):
-            return probe_table(tk, tv, cnt, probe_keys)
-        return probe_lookup(build_keys, build_vals, probe_keys,
-                            engine="xla", tile_log2=tile_log2)
-    keys = torch.cat([build_keys, probe_keys])
-    packed = _tagged_positions(nb, np_, keys.device)
-    val = torch.cat([build_vals, torch.zeros_like(probe_keys)])
-    _, spacked, _, is_build, matched, seg_bval = _sort_merge_match(
-        keys, packed, val, engine, tile_log2)
-    del keys, packed, val
-    return _lookup_result(is_build, matched, seg_bval, spacked, np_)
+    with annotate("lsd.probe_lookup"):
+        nb, np_ = build_keys.shape[0], probe_keys.shape[0]
+        if engine == "vmem":
+            tk, tv, cnt, ok = build_table(build_keys, build_vals,
+                                          plan_rows(nb))
+            if host_value(ok):
+                return probe_table(tk, tv, cnt, probe_keys)
+            return probe_lookup(build_keys, build_vals, probe_keys,
+                                engine="xla", tile_log2=tile_log2)
+        with annotate("lsd.join.tag"):
+            keys = torch.cat([build_keys, probe_keys])
+            packed = _tagged_positions(nb, np_, keys.device)
+            val = torch.cat([build_vals, torch.zeros_like(probe_keys)])
+        _, spacked, _, is_build, matched, seg_bval = _sort_merge_match(
+            keys, packed, val, engine, tile_log2)
+        del keys, packed, val
+        return _lookup_result(is_build, matched, seg_bval, spacked, np_)
 
 
 def _lookup_result(is_build, matched, seg_bval, spacked, np_: int):
     """(match, build_val) of the probe rows, back in probe order."""
     order = _probe_order(is_build.logical_not(), spacked)[:np_]
-    m = matched[order].to(torch.int32).view(torch.uint32)
-    bv = torch.where(matched, seg_bval.view(torch.int32), 0)[order]
-    return m, bv.view(torch.uint32)
+    with annotate("lsd.join.gather"):
+        m = matched[order].to(torch.int32).view(torch.uint32)
+        bv = torch.where(matched, seg_bval.view(torch.int32), 0)[order]
+        return m, bv.view(torch.uint32)
 
 
 def probe_lookup64(build_hi: torch.Tensor, build_lo: torch.Tensor,

@@ -59,6 +59,8 @@ from lsdradixsort_tpu_torch.core.convert import (gather, i64_to_u32,
                                                  iota_u32, stable_order,
                                                  u32_to_i64)
 from lsdradixsort_tpu_torch.core.digits import get_digit, num_digit_groups
+from lsdradixsort_tpu_torch.core.profiling import (COUNTS, annotate,
+                                                   host_value)
 from lsdradixsort_tpu_torch.kernels.histogram import block_digit_histograms
 from lsdradixsort_tpu_torch.kernels.merge import (KWAY, MAX_STREAMS,
                                                   merge_pass, merge_pass_kv,
@@ -97,12 +99,13 @@ def merge_sort_keys(keys: torch.Tensor, tile_log2: int = 15,
     n = keys.shape[0]
     tile = 1 << tile_log2
     npad = _padded_size(n, tile)
-    x = sort_tiles(_pad(keys, npad), tile_rows=tile // LANES)
-    run = tile
-    while run < npad:
-        x = merge_pass(x, run)
-        run *= KWAY
-    x = x[:n]
+    with annotate("lsd.merge_sort"):
+        x = sort_tiles(_pad(keys, npad), tile_rows=tile // LANES)
+        run = tile
+        while run < npad:
+            x = merge_pass(x, run)
+            run *= KWAY
+        x = x[:n]
     return x if skew_fallback else (x, True)
 
 
@@ -118,13 +121,14 @@ def merge_sort_with_ranks(keys: torch.Tensor, tile_log2: int = 15,
     npad = _padded_size(n, tile)
     # pad rows carry positions >= n: among equal sentinel keys the real
     # rows sort first, so [:n] keeps exactly the real rows
-    x, v = sort_tiles_kv(_pad(keys, npad), iota_u32(npad, keys.device),
-                         tile_rows=tile // LANES)
-    run = tile
-    while run < npad:
-        x, v = merge_pass_kv(x, v, run)
-        run *= KWAY
-    return x[:n], v[:n]
+    with annotate("lsd.merge_sort"):
+        x, v = sort_tiles_kv(_pad(keys, npad), iota_u32(npad, keys.device),
+                             tile_rows=tile // LANES)
+        run = tile
+        while run < npad:
+            x, v = merge_pass_kv(x, v, run)
+            run *= KWAY
+        return x[:n], v[:n]
 
 
 def merge_sort_multi(keys: torch.Tensor, values, tile_log2: int = 15,
@@ -143,7 +147,7 @@ def merge_sort_multi(keys: torch.Tensor, values, tile_log2: int = 15,
     if npad != keys.shape[0] and len(values) >= 2:
         collide = ((keys.view(torch.int32) == -1)
                    & (values[0].view(torch.int32) == -1)).any()
-        if bool(collide):
+        if host_value(collide):
             perm = stable_order([keys, values[0]])
             return gather(keys, perm), [gather(v, perm) for v in values]
     return _merge_sort_multi(keys, values, tile_log2)
@@ -155,13 +159,15 @@ def _merge_sort_multi(keys: torch.Tensor, values, tile_log2: int):
     n = keys.shape[0]
     tile = 1 << tile_log2
     npad = _padded_size(n, tile)
-    x, vs = sort_tiles_multi(_pad(keys, npad), [_pad(v, npad) for v in values],
-                             tile_rows=tile // LANES)
-    run = tile
-    while run < npad:
-        x, vs = merge_pass_multi(x, vs, run)
-        run *= KWAY
-    return x[:n], [v[:n] for v in vs]
+    with annotate("lsd.merge_sort"):
+        x, vs = sort_tiles_multi(_pad(keys, npad),
+                                 [_pad(v, npad) for v in values],
+                                 tile_rows=tile // LANES)
+        run = tile
+        while run < npad:
+            x, vs = merge_pass_multi(x, vs, run)
+            run *= KWAY
+        return x[:n], [v[:n] for v in vs]
 
 
 def sort(keys: torch.Tensor, strategy: str = "merge", r: int = 8,
@@ -169,17 +175,18 @@ def sort(keys: torch.Tensor, strategy: str = "merge", r: int = 8,
          ) -> torch.Tensor:
     """Sort u32/i32/f32 keys (TestGPULSDRadixSort path, cu:912-1030).
     Float keys sort in IEEE total order (core/keycodec.py)."""
-    code = keycodec.encode(keys, descending)
-    if strategy == "merge":
-        out = merge_sort_keys(code)
-    elif strategy == "xla":
-        out = i64_to_u32(torch.sort(u32_to_i64(code)).values)
-    elif strategy == "composed":
-        out = _composed_lsd_sort(code, r, block_size)
-    else:
-        raise ValueError(
-            f"unknown strategy {strategy!r}; pick from {_STRATEGIES}")
-    return keycodec.decode(out, keys.dtype, descending)
+    with annotate("lsd.sort"):
+        code = keycodec.encode(keys, descending)
+        if strategy == "merge":
+            out = merge_sort_keys(code)
+        elif strategy == "xla":
+            out = i64_to_u32(torch.sort(u32_to_i64(code)).values)
+        elif strategy == "composed":
+            out = _composed_lsd_sort(code, r, block_size)
+        else:
+            raise ValueError(
+                f"unknown strategy {strategy!r}; pick from {_STRATEGIES}")
+        return keycodec.decode(out, keys.dtype, descending)
 
 
 def sort_kv(keys: torch.Tensor, values, strategy: str = "merge", r: int = 8,
@@ -194,28 +201,30 @@ def sort_kv(keys: torch.Tensor, values, strategy: str = "merge", r: int = 8,
     never a conversion); payloads of other widths take "xla", a stable
     torch.sort of the codes. "composed" (n % block_size == 0) moves each
     (n,) payload, of any dtype, by its bits at every radix pass."""
-    code = keycodec.encode(keys, descending)
-    flat, spec = pytree.tree_flatten(values)
-    if strategy == "merge" and any(v.element_size() != 4 for v in flat):
-        strategy = "xla"
-    if strategy == "merge":
-        n = keys.shape[0]
-        u32 = [v.contiguous().view(torch.uint32) for v in flat]
-        # values[0] is the row index (< 2^31), never the 0xFFFFFFFF of a
-        # pad row, so the collision check and its host sync are skipped
-        sk, outs = _merge_sort_multi(code, [iota_u32(n, keys.device), *u32],
-                                     tile_log2)
-        back = [o.view(v.dtype) for o, v in zip(outs[1:], flat)]
-    elif strategy == "xla":
-        perm = stable_order([code])
-        sk, back = gather(code, perm), [gather(v, perm) for v in flat]
-    elif strategy == "composed":
-        sk, back = _composed_lsd_sort_kv(code, flat, r, block_size)
-    else:
-        raise ValueError(
-            f"unknown strategy {strategy!r}; pick from {_STRATEGIES}")
-    return (keycodec.decode(sk, keys.dtype, descending),
-            pytree.tree_unflatten(back, spec))
+    with annotate("lsd.sort_kv"):
+        code = keycodec.encode(keys, descending)
+        flat, spec = pytree.tree_flatten(values)
+        if strategy == "merge" and any(v.element_size() != 4 for v in flat):
+            strategy = "xla"
+        if strategy == "merge":
+            n = keys.shape[0]
+            u32 = [v.contiguous().view(torch.uint32) for v in flat]
+            # values[0] is the row index (< 2^31), never the 0xFFFFFFFF of
+            # a pad row, so the collision check and its host sync are
+            # skipped
+            sk, outs = _merge_sort_multi(
+                code, [iota_u32(n, keys.device), *u32], tile_log2)
+            back = [o.view(v.dtype) for o, v in zip(outs[1:], flat)]
+        elif strategy == "xla":
+            perm = stable_order([code])
+            sk, back = gather(code, perm), [gather(v, perm) for v in flat]
+        elif strategy == "composed":
+            sk, back = _composed_lsd_sort_kv(code, flat, r, block_size)
+        else:
+            raise ValueError(
+                f"unknown strategy {strategy!r}; pick from {_STRATEGIES}")
+        return (keycodec.decode(sk, keys.dtype, descending),
+                pytree.tree_unflatten(back, spec))
 
 
 def sort_with_ranks(keys: torch.Tensor, descending: bool = False):
@@ -393,6 +402,7 @@ def _pass_destinations(keys: torch.Tensor, r: int, group: int,
     sorted_digits, order = torch.sort(digits.view(nb, block_size), dim=1,
                                       stable=True)
     del digits
+    COUNTS["int64_bytes"] += 8 * sorted_digits.numel()
     dst = start.gather(1, sorted_digits.to(torch.int64))
     del sorted_digits
     dst += torch.arange(block_size, device=keys.device)

@@ -20,6 +20,7 @@ from lsdradixsort_tpu_torch.core import keycodec
 from lsdradixsort_tpu_torch.core.convert import (gather, iota_u32,
                                                  stable_order, u32_to_i64,
                                                  wrap_u32)
+from lsdradixsort_tpu_torch.core.profiling import host_value
 from lsdradixsort_tpu_torch.kernels.histogram import digit_histogram
 from lsdradixsort_tpu_torch.ops.aggregate import starts_run
 from lsdradixsort_tpu_torch.ops.filter import compact
@@ -43,7 +44,7 @@ def top_k(keys: torch.Tensor, k: int, largest: bool = True):
         hist = u32_to_i64(digit_histogram(codes, 8, 3))   # high byte
         cum = torch.cumsum(hist, 0)
         t = torch.argmax((cum >= k).to(torch.int32))     # threshold bin
-        fast = bool(cum[t] <= budget)
+        fast = host_value(cum[t] <= budget)
     if fast:
         survive = (u32_to_i64(codes) >> 24) <= t
         cnt, ck, ci = compact(survive, codes, iota_u32(n, codes.device))

@@ -33,6 +33,7 @@ from lsdradixsort_tpu_torch.core import keycodec
 from lsdradixsort_tpu_torch.core.convert import (gather, i64_to_u32,
                                                  stable_order, to_numpy,
                                                  u32_to_i64, wrap_u32)
+from lsdradixsort_tpu_torch.core.profiling import to_host
 from lsdradixsort_tpu_torch.kernels.fill_forward import fill_forward_last
 from lsdradixsort_tpu_torch.ops.filter import compact, filter_kv
 from lsdradixsort_tpu_torch.ops.join import hash_join_multi
@@ -208,7 +209,8 @@ def undistribute(counts, *arrays, mesh: Mesh):
     valid rows of rank 0, then rank 1, .... Each rank passes its own
     counts (1,) and equal-length shards; every rank gets the result."""
     _check_member(mesh)
-    c = all_gather(u32_to_i64(counts.reshape(1)), mesh).reshape(-1).tolist()
+    c = to_host(all_gather(u32_to_i64(counts.reshape(1)), mesh)
+                ).reshape(-1).tolist()
     outs = []
     for a in arrays:
         g = to_numpy(all_gather(a, mesh).reshape(-1)).reshape(mesh.size, -1)

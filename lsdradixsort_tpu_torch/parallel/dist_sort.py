@@ -37,6 +37,7 @@ import torch.distributed as dist
 
 from lsdradixsort_tpu_torch.core import keycodec
 from lsdradixsort_tpu_torch.core.convert import gather, stable_order
+from lsdradixsort_tpu_torch.core.profiling import to_host
 from lsdradixsort_tpu_torch.ops.sort import merge_sort_keys, merge_sort_multi
 from lsdradixsort_tpu_torch.parallel.mesh import (DATA_AXIS, Mesh,
                                                   _check_member, all_gather,
@@ -178,7 +179,7 @@ def _exchange(arrays, input_offsets, send_sizes, mesh: Mesh, out_len: int):
     (the rest zero). One all_to_all_single a stream at exact sizes."""
     d, me = mesh.size, mesh.rank
     sizes = all_gather(send_sizes, mesh)                    # (src, dst)
-    plan = torch.cat([sizes.reshape(-1), input_offsets]).tolist()
+    plan = to_host(torch.cat([sizes.reshape(-1), input_offsets])).tolist()
     send = plan[me * d:(me + 1) * d]
     recv = [plan[s * d + me] for s in range(d)]
     offsets = plan[d * d:]
