@@ -250,6 +250,7 @@ def main() -> int:
     from lsdradixsort_tpu_torch.bench import runner as RN
     from lsdradixsort_tpu_torch.bench import small_ops as SO
     from lsdradixsort_tpu_torch.kernels import _build
+    from lsdradixsort_tpu_torch.kernels import aggregate as AG
     from lsdradixsort_tpu_torch.kernels import compaction as CP
     from lsdradixsort_tpu_torch.kernels import fill_forward as FF
     from lsdradixsort_tpu_torch.kernels import hash_table as HT
@@ -358,7 +359,7 @@ def main() -> int:
                               "block_prefix_sums", "transpose_tiled",
                               "compact_stream_multi", "fill_forward_last",
                               "probe_table", "shuffle_row_runs",
-                              "shuffle_elem_runs")}
+                              "shuffle_elem_runs", "filtered_run_sums")}
 
     def compare(kernel, label, got, want):
         for i, (g, w) in enumerate(zip(got, want, strict=True)):
@@ -1278,7 +1279,7 @@ def main() -> int:
     phase_done(2)
 
     # ---- 3. main paths end to end -----------------------------------------
-    modules = (TS, M, H, SC, TR, CP, FF, HT, SH)
+    modules = (TS, M, H, SC, TR, CP, FF, HT, SH, AG)
 
     def reset_counts():
         for mod in modules:
@@ -1478,7 +1479,7 @@ def main() -> int:
 
     # ---- 4. launch counters -----------------------------------------------
     query_kernels = ("compact_stream_multi", "fill_forward_last",
-                     "probe_table")
+                     "probe_table", "filtered_run_sums")
     shuffle_kernels = ("shuffle_row_runs", "shuffle_elem_runs")
     # exclusive_scan_hierarchical runs on the bench runner's scan/hier
     # only: exclusive_scan no longer hands it its tile totals
@@ -1963,6 +1964,49 @@ def main() -> int:
     print(f"time probe_table 50000-key table ({wide[0].shape[0]} rows, past "
           f"shared memory), 2^22 probes: {tk_.ms:.3f} ms ({card})")
     del wide, wide_probes, qdata
+    # filtered_group_by_sum's reduction after the sort at Q1's n (TPC-H
+    # SF 30's lineitem, 4 groups, 98 % kept) with values that wrap, at a
+    # ragged n with a run end every 16 rows on average, through views one
+    # word off alignment, and with every row rejected (count 0). Its
+    # bound: the three streams read once (at the read ceiling), each run
+    # end's key and sum written
+    def run_streams(n, groups, kept_share, seed, offset=0):
+        g = random_keys_bounded(n + offset, 0, groups, seed, dev)
+        keep = random_keys(n + offset, seed + 1, dev).view(torch.int32)
+        keep = keep.to(torch.int64) & 0xFFFF < int(kept_share * 65536)
+        g = torch.where(keep, u32_to_i64(g), 0xFFFFFFFF)
+        packed = (~keep).to(torch.int64) << 31 | torch.arange(
+            n + offset, device=dev)
+        order = torch.sort((g - (1 << 31)) << 32 | packed).indices
+        streams = [i64_to_u32(x[order])[offset:] for x in (g, packed)]
+        del g, packed, keep
+        return streams + [random_keys(n + offset, seed + 2, dev)[offset:]]
+
+    q1n = 180_000_000
+    for what, n_, groups, share, offset in (
+            ("Q1: 4 groups, 98 % kept, values that wrap", q1n, 4, 0.98, 0),
+            ("ragged: 2^23 groups, 1 word off alignment", (1 << 27) + 12345,
+             1 << 23, 0.75, 1),
+            ("every row rejected", (1 << 22) + 3, 4, 0.0, 0)):
+        st = run_streams(n_, groups, share, len(what), offset)
+        c = int(AG.filtered_run_sums(*st)[0])
+        if c != int(AG.filtered_run_sums_plain(*st)[0]) or (
+                share == 0 and c != 0):
+            raise AssertionError(f"filtered_run_sums [{what}]: count {c}")
+        check_and_time("filtered_run_sums", what, AG.filtered_run_sums,
+                       AG.filtered_run_sums_plain, st, 12 * n_ + 8 * c,
+                       lambda out, c=c: [out[0].reshape(1), out[1][:c],
+                                         out[2][:c]],
+                       elems=n_, reads=12 * n_ - 8 * c)
+        ops = trace_launches(lambda: AG.filtered_run_sums(*st))
+        ms = sum(t for k, t in ops if "filtered_runs" in k)
+        copy_ms = (12 * n_ + 8 * c) / ceiling / 1e6
+        traced = ", ".join(f"{k} {t:.4f}" for k, t in ops)
+        print(f"trace filtered_runs [{what}]: {ms:.4f} ms device, bound "
+              f"{bound_ms(12 * n_ + 8 * c, 12 * n_ - 8 * c):.4f} ms (all "
+              f"bytes at the copy ceiling: {copy_ms:.4f} ms); device ops "
+              f"traced: {traced} ({card})")
+        del st
     print(f"phase 5: every query-path kernel bit exact against its plain "
           f"version at n={qn} (max_abs_err {max_err})")
 
@@ -2126,6 +2170,8 @@ def main() -> int:
                               "lsdradixsort_tpu/kernels/shuffle.py:175"),
         "shuffle_row_runs": ("lsdradixsort_tpu_torch/csrc/shuffle.cu",
                              "lsdradixsort_tpu/kernels/shuffle.py:235"),
+        "filtered_run_sums": ("lsdradixsort_tpu_torch/csrc/aggregate.cu",
+                              "lsdradixsort_tpu/ops/aggregate.py:175"),
     }
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

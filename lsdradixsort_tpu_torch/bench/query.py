@@ -45,6 +45,7 @@ from lsdradixsort_tpu_torch.core.convert import (i64_to_u32, iota_u32,
 from lsdradixsort_tpu_torch.core.datagen import (random_keys,
                                                  random_keys_bounded)
 from lsdradixsort_tpu_torch.core.timing import card_label, time_fn
+from lsdradixsort_tpu_torch.kernels import aggregate as AG
 from lsdradixsort_tpu_torch.kernels import compaction as CP
 from lsdradixsort_tpu_torch.kernels import fill_forward as FF
 from lsdradixsort_tpu_torch.kernels import hash_table as HT
@@ -276,7 +277,8 @@ def query_ops(d: dict) -> list[Op]:
                lambda e=engine: filtered_group_by_sum(
                    d["keys"], d["gkeys"], d["vals"], LO, HI, engine=e),
                lambda out, e=engine: _check_filtered_groups(
-                   d, out, f"filtered_group_by_sum {e}")),
+                   d, out, f"filtered_group_by_sum {e}"),
+               {"filtered_run_sums": 1, "compact_stream_multi": 0}),
             Op("hash_join", engine,
                lambda e=engine: hash_join(d["bkeys"], d["bvals"], d["pkeys"],
                                           d["vals"], engine=e),
@@ -457,7 +459,7 @@ def label(op: Op) -> str:
 def kernel_calls() -> dict[str, int]:
     """Launches plus plain calls of each query-path kernel so far."""
     return {k: mod.LAUNCHES[k] + mod.PLAIN_CALLS[k]
-            for mod in (CP, FF, HT, H) for k in mod.LAUNCHES}
+            for mod in (AG, CP, FF, HT, H) for k in mod.LAUNCHES}
 
 
 def run_once(op: Op, check: bool) -> tuple[float, float]:

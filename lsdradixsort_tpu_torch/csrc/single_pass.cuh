@@ -1,5 +1,7 @@
 // The pieces that the single-pass kernels share: scan.cu's scan_lookback
-// and scan_rounds, and compaction.cu's compact_tiles. Each .cu is built by
+// and scan_rounds, compaction.cu's compact_tiles, and aggregate.cu's
+// filtered_runs (the ticket and status words, with a walk of its own over
+// a pair of values a word). Each .cu is built by
 // an nvcc call of its own and includes this header, so everything here is
 // local to the source that includes it (an anonymous namespace).
 //

@@ -7,6 +7,8 @@ run boundaries, reduce each run by differences of a running sum at the
 run ends, and compact the boundary rows to the front (ops/filter.py
 `compact`). Sums are mod 2^32, so they are exact whatever the order; the
 running sum is the port's `exclusive_scan` (kernels/scan.py) plus the row.
+`filtered_group_by_sum` does those steps after its sort in one pass on
+the card (kernels/aggregate.py), the same sequence on the CPU.
 
 engine="xla" is a stable `torch.sort` where the JAX package calls
 `lax.sort`; engine="merge" is the port's framework sort
@@ -22,6 +24,7 @@ from lsdradixsort_tpu_torch.core.convert import (gather, iota_u32,
                                                  stable_order, u32_to_i64,
                                                  wrap_u32)
 from lsdradixsort_tpu_torch.core.profiling import annotate
+from lsdradixsort_tpu_torch.kernels.aggregate import filtered_run_sums
 from lsdradixsort_tpu_torch.kernels.scan import exclusive_scan
 from lsdradixsort_tpu_torch.ops.filter import compact, range_mask
 from lsdradixsort_tpu_torch.ops.sort import merge_sort_keys, merge_sort_multi
@@ -133,8 +136,10 @@ def filtered_group_by_sum(keys: torch.Tensor, group_keys: torch.Tensor,
     Rejected rows get the group key 0xFFFFFFFF and the tag bit 31 in a
     packed (tag << 31) | position column, which is compared after the key:
     a real group 0xFFFFFFFF still aggregates, its kept rows sorting before
-    the rejected ones. Returns (num_groups, unique_group_keys_sorted,
-    sums). n < 2^31."""
+    the rejected ones. After the sort, the running sum, the run ends,
+    their compaction and their sums' differences are one pass
+    (kernels/aggregate.py `filtered_run_sums`). Returns (num_groups,
+    unique_group_keys_sorted, sums). n < 2^31."""
     with annotate("lsd.filtered_group_by_sum"):
         n = keys.shape[0]
         with annotate("lsd.agg.mask"):
@@ -156,12 +161,5 @@ def filtered_group_by_sum(keys: torch.Tensor, group_keys: torch.Tensor,
             raise ValueError(f"unknown engine {engine!r}; pick 'xla' or "
                              "'merge'")
         del gk, packed
-        with annotate("lsd.agg.sums"):
-            kept = spacked.view(torch.int32) >= 0
-            sums = running_sum(torch.where(kept, sv.view(torch.int32), 0)
-                               .view(torch.uint32))
-        with annotate("lsd.agg.bounds"):
-            is_last = (differs_from_next(sk) | differs_from_next(kept)) & kept
-        count, uk, run_end_sums = compact(is_last, sk, sums)
-        with annotate("lsd.agg.differences"):
-            return count, uk, run_differences(run_end_sums)
+        with annotate("lsd.agg.runs"):
+            return filtered_run_sums(sk, spacked, sv)

@@ -37,8 +37,7 @@ TREES = {
              (1, "lsd.merge_sort"), (1, "lsd.join.match"),
              (1, "lsd.join.probe_order"), (1, "lsd.join.gather")],
     "agg": [(0, "lsd.filtered_group_by_sum"), (1, "lsd.agg.mask"),
-            (1, "lsd.merge_sort"), (1, "lsd.agg.sums"), (1, "lsd.agg.bounds"),
-            (1, "lsd.agg.differences")],
+            (1, "lsd.merge_sort"), (1, "lsd.agg.runs")],
 }
 
 
@@ -111,10 +110,11 @@ def test_host_syncs_count_the_values_read():
 
 
 def test_int64_bytes_count_the_widenings():
-    # the card's path widens four columns of N rows: the range mask's
-    # keys, the running sum's scan and rows, the run ends' sums; the
-    # plain versions add the scan's rows and the tile sort's order key
-    # of (key, packed)
+    # the plain versions widen seven columns of N rows: the range mask's
+    # keys, the running sum's scan and rows, the run ends' sums, the
+    # scan's rows and the tile sort's order key of (key, packed); on the
+    # card only the range mask's keys (the reduction after the sort is
+    # one kernel, kernels/aggregate.py)
     got = _counted(CALLS["agg"])["int64_bytes"]
     assert got == 8 * (4 * N + N + 2 * N)
     # a one-tile keys sort widens its keys once, in the plain tile sort
