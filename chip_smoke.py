@@ -102,7 +102,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    calls that show the path it took; and the sort family's entry points
    against plain references at 2^22: sort64_with_ranks for u64, i64 and
    f64 keys, both directions, every strategy; sort_lex of 2, 3 and 7
-   columns of mixed dtypes and directions; window_rank, each method.
+   columns of mixed dtypes and directions; window_rank, each method. The
+   gather of whole records at every element width (16, 8, 4 bytes, and
+   bytes), rows one byte and one word off alignment, more and fewer
+   output rows than input rows, and none.
    Then the distributed operator set of parallel/ on worlds of processes
    (entry.py `dryrun_multichip`, its six steps each verified): one rank
    on NCCL, and 4 ranks on this one card over gloo (NCCL refuses two
@@ -120,7 +123,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    chunked and sort_kv_chunked (u32 payload) of the same 2^30 keys as 8
    segments of 2^27, chunk_log2 19, 2 ranges, each verified range by
    range (bench/flagship.py `RankedRanges`) with its phase times and peak
-   memory. 64-bit: sort64_with_ranks of 2^27 (hi, lo) planes, each
+   memory. Records (a path of its own): sort_records of 10^8 gensort
+   records of 100 bytes with 10-byte keys (portbench/data/
+   gensort_records.py) against portbench/reference/sort_records.py, byte
+   for byte, with its peak memory. 64-bit: sort64_with_ranks of 2^27 (hi, lo) planes, each
    strategy against a stable torch.sort of the int64 words (the "merge"
    strategy, the ncmp = 3 chain, a path of its own). Query (a path of its
    own): every op of bench/query.py at n = 10^8, nb = 10^7 (BASELINE
@@ -161,7 +167,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    of its local sorts, the histogram, the compaction, the fill-forward,
    the scan of the many-to-many join) and no plain version; dist_sort and
    dist_sort_kv exactly 2 cluster_sort and 8 merge passes (two local
-   merge sorts of 2^27 rows), dist_join exactly one fill-forward. Then one
+   merge sorts of 2^27 rows), dist_join exactly one fill-forward;
+   sort_records of 10-byte keys exactly 3 cluster_sort, 12 merge passes
+   (three sort_lex passes of 2^27 padded rows) and one gather. Then one
    composed sort at each r = 1, 2, 4, 8 launches block_prefix_sums and
    transpose_tiled 32 / r times each, with no plain call.
 5. Each kernel against its plain version at the main paths' shapes, bit
@@ -206,7 +214,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    2^30 the composed r = 4 sort beside merge_sort_keys, the scan and the
    r = 1 and r = 8 histograms beside the reference's RTX 3060 Ti numbers
    (BASELINE.md), and the flagship's r = 4, block 512 histogram, checked
-   bit for bit against its plain version.
+   bit for bit against its plain version. Last the gather of whole
+   records at sort_records' 10^8 rows of 100 bytes and at a ragged n of
+   101-byte rows one byte off alignment, bit for bit against its plain
+   version (one index_select), with its bound.
 
 Each phase prints its seconds. The line before the last is a JSON object
 with one entry per kernel; the last line is {"ok": true, "device":
@@ -256,6 +267,7 @@ def main() -> int:
     from lsdradixsort_tpu_torch.kernels import hash_table as HT
     from lsdradixsort_tpu_torch.kernels import histogram as H
     from lsdradixsort_tpu_torch.kernels import merge as M
+    from lsdradixsort_tpu_torch.kernels import records as RC
     from lsdradixsort_tpu_torch.kernels import scan as SC
     from lsdradixsort_tpu_torch.kernels import shuffle as SH
     from lsdradixsort_tpu_torch.kernels import tile_sort as TS
@@ -266,7 +278,9 @@ def main() -> int:
                                                  merge_sort_keys,
                                                  merge_sort_with_ranks, sort,
                                                  sort64_with_ranks, sort_kv,
-                                                 sort_lex)
+                                                 sort_lex, sort_records)
+    from portbench.data import gensort_records
+    from portbench.reference import sort_records as records_ref
     from lsdradixsort_tpu_torch.ops.window import window_rank
 
     dev = torch.device("cuda")
@@ -359,7 +373,8 @@ def main() -> int:
                               "block_prefix_sums", "transpose_tiled",
                               "compact_stream_multi", "fill_forward_last",
                               "probe_table", "shuffle_row_runs",
-                              "shuffle_elem_runs", "filtered_run_sums")}
+                              "shuffle_elem_runs", "filtered_run_sums",
+                              "gather_records")}
 
     def compare(kernel, label, got, want):
         for i, (g, w) in enumerate(zip(got, want, strict=True)):
@@ -1266,6 +1281,30 @@ def main() -> int:
           f"directions, n={n2}: verified")
     del wpart, worder, lex_cols
 
+    # the gather of whole records: every element width of the kernel (16,
+    # 8 and 4 bytes where the rows and both bases allow, else bytes), rows
+    # one byte and one word off alignment, more and fewer output rows than
+    # input rows, none, against the plain version
+    gen_r = torch.Generator(device=dev).manual_seed(31)
+    for rows_in, rows_out, width, offset in (
+            (n2, n2, 100, 0), (n2, n2, 100, 4), (n2 + 12345, n2, 101, 1),
+            (100_000, 300_000, 16, 0), (300_000, 100_000, 8, 0),
+            (70_000, 70_000, 12, 0), (70_000, 70_000, 16, 4),
+            (5_000, 5_000, 1, 0), (1_000, 1_000, 3000, 0), (10, 0, 100, 0)):
+        buf = torch.randint(0, 256, (rows_in * width + offset,),
+                            dtype=torch.uint8, device=dev, generator=gen_r)
+        rec = buf[offset:].view(rows_in, width)
+        perm = torch.randint(0, rows_in, (rows_out,), device=dev,
+                             generator=gen_r).to(torch.int32).view(
+                                 torch.uint32)
+        got = RC.gather_records(rec, perm)
+        if not torch.equal(got, RC.gather_records_plain(rec, perm)):
+            raise AssertionError(f"gather_records {rows_in} rows of {width} "
+                                 f"bytes at offset {offset} -> {rows_out}")
+        del buf, rec, perm, got
+    print("phase 2: gather_records at every element width, unaligned rows, "
+          "m != n and m = 0: verified")
+
     # the distributed operator set on worlds of processes, every step
     # verified: one rank on NCCL, and 4 ranks on this one card over gloo
     # (NCCL refuses two ranks on one GPU; gloo stages the collectives of
@@ -1279,7 +1318,7 @@ def main() -> int:
     phase_done(2)
 
     # ---- 3. main paths end to end -----------------------------------------
-    modules = (TS, M, H, SC, TR, CP, FF, HT, SH, AG)
+    modules = (TS, M, H, SC, TR, CP, FF, HT, SH, AG, RC)
 
     def reset_counts():
         for mod in modules:
@@ -1399,6 +1438,34 @@ def main() -> int:
     del wh, wl, widx
     print("phase 3: sort64_with_ranks 2^27 merge (ncmp=3 chain), merge2, "
           "xla: verified")
+
+    # the records path (a path of its own): sort_records of the Sort
+    # Benchmark's 10^8 gensort records of 100 bytes (10-byte keys), as the
+    # benchmark's sortbench.indy.10gb makes them, against its plain
+    # reference, byte for byte, with its peak device memory
+    del hi64, lo64
+    rcfg = {"records": 10**8, "record_bytes": 100, "key_bytes": 10}
+    recs = gensort_records.make(rcfg, {}, 2**31 + 77, dev)["records"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_counts()
+    t_rec = time.perf_counter()
+    got = sort_records(recs, 10)
+    torch.cuda.synchronize()
+    t_rec = time.perf_counter() - t_rec
+    records_launches, records_plain = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = records_ref.expect({"records": recs, "key_bytes": 10})
+    diff = records_ref.compare(got, want)
+    if any(diff.values()):
+        raise AssertionError(f"sort_records 10^8 x 100 B: {diff}")
+    del got, want, recs
+    print(f"phase 3: sort_records 10^8 records of 100 bytes, 10-byte keys: "
+          f"verified against portbench/reference/sort_records.py; first call "
+          f"{t_rec * 1e3:.1f} ms; peak device memory {peak / 2**30:.2f} GiB "
+          f"({held / 2**30:.2f} GiB held before)")
+    hi64, lo64 = random_keys(n, 11, dev), random_keys(n, 12, dev)
     keys = random_keys(n, 0, dev)
 
     # the query path: every op of bench/query.py at n = 10^8, nb = 10^7,
@@ -1483,11 +1550,12 @@ def main() -> int:
     shuffle_kernels = ("shuffle_row_runs", "shuffle_elem_runs")
     # exclusive_scan_hierarchical runs on the bench runner's scan/hier
     # only: exclusive_scan no longer hands it its tile totals
-    # (bitonic_stage runs only for tiles above a cluster's span: no path)
+    # (bitonic_stage runs only for tiles above a cluster's span: no path;
+    # gather_records on the records path alone)
     sort_kernels = tuple(k for k in sort_launches
                          if k not in query_kernels + shuffle_kernels
                          + ("merge_pass_runs", "exclusive_scan_hierarchical",
-                            "bitonic_stage"))
+                            "bitonic_stage", "gather_records"))
     merge_kernels = ("sort_tiles_multi", "merge_path_splits",
                      "merge_pass_multi")
     # each path, its counts, and the kernels it must have launched
@@ -1498,6 +1566,8 @@ def main() -> int:
         "sort64 merge (ncmp=3)": (sort64_launches, sort64_plain,
                                   merge_kernels),
         "query": (query_launches, query_plain, query_kernels),
+        "records": (records_launches, records_plain,
+                    merge_kernels + ("gather_records",)),
         "window_rank": (window_launches, window_plain_calls,
                         merge_kernels + ("fill_forward_last",)),
         "bench runner": (runner_launches, runner_plain,
@@ -1546,8 +1616,14 @@ def main() -> int:
     # (each chunked_record sorts twice: a warm-up and the measured run);
     # the runner's scan/hier record calls the hierarchical scan 7 times (a
     # warm-up, 5 timed, the verify)
+    # sort_records of 10-byte keys: three sort_lex passes of 10^8 rows
+    # (padded to 2^27: 4 merge passes each), one gather
     exact = {"chunked": ("merge_pass_runs", chunked_launches,
                          2 * 2 * FL.NRANGES),
+             "records (cluster_sort)": ("cluster_sort", records_launches, 3),
+             "records (merge passes)": ("merge_pass_multi", records_launches,
+                                        12),
+             "records (gather)": ("gather_records", records_launches, 1),
              "bench runner": ("exclusive_scan_hierarchical",
                               runner_launches, 7)}
     # at D = 1 a dist sort of 2^27 rows is two local merge sorts: two tile
@@ -1587,6 +1663,7 @@ def main() -> int:
     # caller on any path, in either package
     launches = {k: query_launches[k] if k in query_kernels
                 else chunked_launches[k] if k == "merge_pass_runs"
+                else records_launches[k] if k == "gather_records"
                 else runner_launches[k] if k in shuffle_kernels
                 + ("exclusive_scan_hierarchical",)
                 else sort_launches[k] for k in sort_launches}
@@ -2132,6 +2209,40 @@ def main() -> int:
           f"{rows['merge_pass_runs']['plain_ms']:.3f} ms, library "
           f"{t_lib.ms:.3f} ms (stable torch.sort of 2^30 int64 words), "
           f"bound {rows['merge_pass_runs']['bound_ms']:.3f} ms ({card})")
+
+    # the gather of whole records at sort_records' shape (10^8 gensort
+    # records of 100 bytes by a random permutation: 4-byte words) and at a
+    # ragged n of 101-byte rows one byte off alignment (bytes); bound: the
+    # permutation, each source row read once and each output row written
+    # once. The plain version is one torch call (index_select of the rows
+    # by the permutation's int32 view)
+    gen_r = torch.Generator(device=dev).manual_seed(41)
+    for what, rows_, width, offset in (
+            ("sort_records: 10^8 rows of 100 bytes", 10**8, 100, 0),
+            ("ragged: 101-byte rows, 1 byte off alignment", (1 << 22) + 12345,
+             101, 1)):
+        buf = torch.randint(0, 256, (rows_ * width + offset,),
+                            dtype=torch.uint8, device=dev, generator=gen_r)
+        rec = buf[offset:].view(rows_, width)
+        perm = torch.randperm(rows_, device=dev, generator=gen_r).to(
+            torch.int32).view(torch.uint32)
+        got = RC.gather_records(rec, perm)
+        if not torch.equal(got, RC.gather_records_plain(rec, perm)):
+            raise AssertionError(f"gather_records [{what}]: differs from "
+                                 f"its plain version")
+        del got
+        nbytes = rows_ * (2 * width + 4)
+        tk = time_fn(RC.gather_records, rec, perm)
+        tp = time_fn(RC.gather_records_plain, rec, perm)
+        rows.setdefault("gather_records", {
+            "ms": tk.ms, "plain_ms": tp.ms, "bound_ms": bound_ms(nbytes),
+            "bound_by": "bytes", "library_ms": tp.ms,
+            "shape": f"{what} n={rows_}"})
+        print(f"kernel gather_records [{what}] n={rows_}: bit exact; cuda "
+              f"{tk.ms:.3f} ms, plain (index_select) {tp.ms:.3f} ms, bound "
+              f"{bound_ms(nbytes):.3f} ms ({nbytes} bytes; at 3.35 TB/s "
+              f"{nbytes / 3.35e9:.3f} ms; {card})")
+        del buf, rec, perm
     phase_done(5)
 
     sources = {
@@ -2172,6 +2283,9 @@ def main() -> int:
                              "lsdradixsort_tpu/kernels/shuffle.py:235"),
         "filtered_run_sums": ("lsdradixsort_tpu_torch/csrc/aggregate.cu",
                               "lsdradixsort_tpu/ops/aggregate.py:175"),
+        "gather_records": ("lsdradixsort_tpu_torch/csrc/records.cu",
+                           "none (the JAX package moves no row wider than "
+                           "a word)"),
     }
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

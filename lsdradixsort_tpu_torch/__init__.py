@@ -15,14 +15,14 @@ Layer map:
   kernels/   tile sort, 8-way merge passes (grouped runs, and runs in
              separate buffers for the chunked sort), digit histogram,
              exclusive scans, tiled transpose, stream compaction,
-             fill-forward, hash-table probe, run shuffles (CUDA + plain
-             versions)
+             fill-forward, hash-table probe, run shuffles, the gather
+             of whole records (CUDA + plain versions)
   golden/    numpy golden models (the bench runner's oracles)
   native/    ctypes bindings of the repo-root native/ C++ host library
   ops/       the sort operators (merge_sort_*, sort, sort_kv, sort_lex,
-             sort64_with_ranks, sort_blocks_kv, ...), the chip-scale
-             chunked sort (bigsort), the query operators (filter, group
-             by, join, top-k, unique) and window ranks
+             sort_records, sort64_with_ranks, sort_blocks_kv, ...), the
+             chip-scale chunked sort (bigsort), the query operators
+             (filter, group by, join, top-k, unique) and window ranks
   utils/     bit-exact verification helpers
   bench/     the benchmark CLI (`python -m lsdradixsort_tpu_torch.bench`,
              bench/runner.py), the flagship benchmark (bench/flagship.py)
@@ -54,7 +54,8 @@ from lsdradixsort_tpu_torch.ops.sort import (argsort, merge_sort_keys,
                                              merge_sort_with_ranks, sort,
                                              sort64_with_ranks,
                                              sort_blocks_kv, sort_kv,
-                                             sort_lex, sort_with_ranks)
+                                             sort_lex, sort_records,
+                                             sort_with_ranks)
 from lsdradixsort_tpu_torch.ops.topk import top_k, unique
 from lsdradixsort_tpu_torch.ops.window import window_rank
 
@@ -62,7 +63,7 @@ __version__ = "0.2.0"   # the JAX package's version, which the port mirrors
 
 __all__ = [
     "sort", "sort_kv", "argsort", "sort_with_ranks",
-    "sort64_with_ranks", "sort_lex", "sort_blocks_kv",
+    "sort64_with_ranks", "sort_lex", "sort_records", "sort_blocks_kv",
     "merge_sort_keys", "merge_sort_with_ranks", "merge_sort_multi",
     "sort_tiles", "sort_tiles_kv", "sort_tiles_multi", "shuffle_row_runs",
     "fill_forward_last",

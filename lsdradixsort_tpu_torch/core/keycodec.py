@@ -8,6 +8,9 @@ lsdradixsort_tpu/core/keycodec.py, with the same bijections:
     -NaN < -inf < ... < -0.0 < +0.0 < ... < +inf < +NaN.
   * descending -> bitwise NOT of the code (tie groups are unchanged, so a
     stable ascending sort of the codes is a stable descending sort).
+  * byte-string keys (the leading bytes of fixed-width binary records,
+    compared as unsigned bytes, memcmp order) -> big-endian u32 words,
+    the last one zero-filled at its low end (`encode_bytes`).
 
 Codes are ``torch.uint32`` tensors. PyTorch's CPU build has no ``~`` or
 ``>>`` on uint32, so the arithmetic runs on the bit-identical int32 view
@@ -114,3 +117,32 @@ def decode64(chi: torch.Tensor, clo: torch.Tensor, dtype: str = "uint64",
         h = h ^ (neg | SIGN)
         l = l ^ neg
     return h.view(torch.uint32), l.view(torch.uint32)
+
+
+# --- byte-string keys of fixed-width records -------------------------------
+
+def encode_bytes(records: torch.Tensor, key_bytes: int) -> list:
+    """The first `key_bytes` bytes of each row of an (n, R) uint8 tensor as
+    ceil(key_bytes / 4) contiguous (n,) uint32 columns whose lexicographic
+    unsigned order is the memcmp order of the key bytes: word w holds bytes
+    4w..4w+3 big-endian, and the bytes of the last word past the key are
+    zero."""
+    if records.dtype != torch.uint8 or records.dim() != 2:
+        raise TypeError(f"records are an (n, R) uint8 tensor, got "
+                        f"{records.dtype} {tuple(records.shape)}")
+    n, width = records.shape
+    if not 1 <= key_bytes <= width:
+        raise ValueError(f"key_bytes={key_bytes} must be in 1..R={width}")
+    words = -(-key_bytes // 4)
+    take = records[:, :min(4 * words, width)]
+    if take.shape[1] < 4 * words:
+        take = torch.cat([take, take.new_zeros(n, 4 * words - take.shape[1])],
+                         dim=1)
+    # reversing each word's bytes makes its int32 view (little-endian) the
+    # big-endian word; one copy, then one transpose into columns
+    be = take.reshape(n, words, 4).flip(-1).reshape(n, 4 * words)
+    cols = be.view(torch.int32).t().contiguous()
+    tail = key_bytes - 4 * (words - 1)
+    if tail < 4:
+        cols[-1] &= -(1 << (32 - 8 * tail))
+    return list(cols.view(torch.uint32).unbind(0))

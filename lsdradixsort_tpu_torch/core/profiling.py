@@ -21,9 +21,11 @@ stages of a call, `lsd.kernel.<wrapper>` around each kernel launch): they
 reach the profiler's timeline, on its clock, while a profiler runs, and
 cost one flag check otherwise. `COUNTS` holds counters that are always on,
 on every device: `host_syncs` (device values read on the host, each
-through `host_value` or `to_host`) and `int64_bytes` (bytes of the int64
-columns that `core/convert.py` `u32_to_i64` makes). `counts()` copies
-them; a reader takes the difference of two copies.
+through `host_value` or `to_host`), `int64_bytes` (bytes of the int64
+columns that `core/convert.py` `u32_to_i64` makes) and `record_bytes`
+(bytes of whole records that `kernels/records.py` `gather_records`
+moves). `counts()` copies them; a reader takes the difference of two
+copies.
 """
 from __future__ import annotations
 
@@ -55,7 +57,7 @@ def trace(log_dir: str, create_perfetto_link: bool = False):
 _OFF = contextlib.nullcontext()     # every span while no profiler runs
 HOST_SYNC = "lsd.host_sync"
 
-COUNTS = {"host_syncs": 0, "int64_bytes": 0}
+COUNTS = {"host_syncs": 0, "int64_bytes": 0, "record_bytes": 0}
 
 
 def annotate(name: str):

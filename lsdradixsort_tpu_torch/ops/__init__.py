@@ -14,6 +14,7 @@ from lsdradixsort_tpu_torch.ops.join import (hash_join,  # noqa: F401
 from lsdradixsort_tpu_torch.ops.topk import top_k, unique  # noqa: F401
 from lsdradixsort_tpu_torch.ops.window import window_rank  # noqa: F401
 from lsdradixsort_tpu_torch.ops.sort import (sort64_with_ranks,  # noqa: F401
-                                             sort_blocks_kv, sort_lex)
+                                             sort_blocks_kv, sort_lex,
+                                             sort_records)
 from lsdradixsort_tpu_torch.ops.bigsort import (  # noqa: F401
     merge_runs_chunked, sort_kv_chunked, sort_with_ranks_chunked)

@@ -16,6 +16,11 @@ every pass sees whole groups.
     core/keycodec.py.
   * `sort_lex`: stable multi-column sort, one stable pass per column,
     least significant first.
+  * `sort_records`: stable sort of fixed-width binary records (an (n, R)
+    uint8 tensor) by their leading key bytes in memcmp order: the key
+    bytes as big-endian u32 words (core/keycodec.py `encode_bytes`),
+    `sort_lex` of the words, then one gather of whole rows
+    (kernels/records.py `gather_records`).
   * `sort64_with_ranks`: stable sort of 64-bit keys given as (hi, lo)
     u32 planes: "merge" is one tile sort + merge chain comparing
     (hi, lo, position) (the kernels' ncmp = 3), "merge2" two stable
@@ -65,6 +70,7 @@ from lsdradixsort_tpu_torch.kernels.histogram import block_digit_histograms
 from lsdradixsort_tpu_torch.kernels.merge import (KWAY, MAX_STREAMS,
                                                   merge_pass, merge_pass_kv,
                                                   merge_pass_multi)
+from lsdradixsort_tpu_torch.kernels.records import gather_records
 from lsdradixsort_tpu_torch.kernels.scan import block_scans, exclusive_scan
 from lsdradixsort_tpu_torch.kernels.tile_sort import (LANES, sort_tiles,
                                                       sort_tiles_kv,
@@ -277,10 +283,11 @@ def sort_lex(key_cols, descending=False, strategy: str = "merge",
             ride = others[:MAX_STREAMS - 3]
             key_s, outs = _merge_sort_multi(
                 codes[i], [iota_u32(n, dev), perm, *ride], tile_log2)
-            order = u32_to_i64(outs[0])
             perm = outs[1]
-            rest = outs[2:] + [gather(c, order)
-                               for c in others[MAX_STREAMS - 3:]]
+            rest = outs[2:]
+            if len(others) > len(ride):
+                order = u32_to_i64(outs[0])
+                rest += [gather(c, order) for c in others[len(ride):]]
         else:
             order = stable_order([codes[i]])
             key_s, perm = gather(codes[i], order), gather(perm, order)
@@ -290,6 +297,33 @@ def sort_lex(key_cols, descending=False, strategy: str = "merge",
     decoded = tuple(keycodec.decode(c, col.dtype, d)
                     for c, col, d in zip(codes, cols, descending))
     return decoded, perm
+
+
+def sort_records(records: torch.Tensor, key_bytes: int = 10,
+                 strategy: str = "merge", tile_log2: int = 15
+                 ) -> torch.Tensor:
+    """Stable sort of fixed-width binary records: a new (n, R) uint8
+    tensor holding the rows of `records` (a contiguous (n, R) uint8
+    tensor) ordered by their first `key_bytes` bytes compared as unsigned
+    bytes (memcmp order, as the Sort Benchmark's valsort checks); rows
+    with equal keys keep their input order.
+
+    The key bytes become ceil(key_bytes / 4) big-endian u32 words
+    (`keycodec.encode_bytes`), `sort_lex` of the words gives the
+    permutation (one stable pass a word, least significant first, on the
+    merge engine, or torch.sort with strategy="xla"), and
+    `gather_records` moves the whole rows once."""
+    with annotate("lsd.sort_records"):
+        with annotate("lsd.records.keys"):
+            words = keycodec.encode_bytes(records, key_bytes)
+        if records.shape[0] == 0:
+            return records.clone()
+        with annotate("lsd.records.sort"):
+            _, perm = sort_lex(words, strategy=strategy,
+                               tile_log2=tile_log2)
+        del words
+        with annotate("lsd.records.gather"):
+            return gather_records(records, perm)
 
 
 def sort64_with_ranks(key_hi: torch.Tensor, key_lo: torch.Tensor,

@@ -1,8 +1,9 @@
 """The port's spans and counters (core/profiling.py): `annotate` costs no
 `record_function` while no profiler runs; under the CPU profiler the op
-and stage spans of a sort, a merge join and a filtered GROUP BY nest as
-the calls do, with no kernel spans on the plain path; the host-sync and
-int64 counters count what the calls do; outputs do not change."""
+and stage spans of a sort, a merge join, a filtered GROUP BY and a sort
+of records nest as the calls do, with no kernel spans on the plain path;
+the host-sync, int64 and record counters count what the calls do;
+outputs do not change."""
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -19,6 +20,12 @@ def _u32(n, hi, seed):
                          ).to(torch.int32).view(torch.uint32)
 
 
+def _records(n, seed):
+    """n records of 100 bytes, random bytes from the seed."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 256, (n, 100), generator=g, dtype=torch.uint8)
+
+
 CALLS = {
     "sort": lambda: lsd.sort(_u32(N, 1 << 31, 1), strategy="merge"),
     # 4000 rows pad to a tile: the sentinel check reads one value
@@ -28,6 +35,8 @@ CALLS = {
     "agg": lambda: lsd.filtered_group_by_sum(
         _u32(N, 100, 6), _u32(N, 4, 7), _u32(N, 1 << 31, 8), 0, 80,
         engine="merge"),
+    # 10-byte keys: three key words, a merge sort each
+    "records": lambda: lsd.sort_records(_records(3000, 9), 10),
 }
 
 # (depth, span) in the order the spans open
@@ -38,6 +47,10 @@ TREES = {
              (1, "lsd.join.probe_order"), (1, "lsd.join.gather")],
     "agg": [(0, "lsd.filtered_group_by_sum"), (1, "lsd.agg.mask"),
             (1, "lsd.merge_sort"), (1, "lsd.agg.runs")],
+    "records": [(0, "lsd.sort_records"), (1, "lsd.records.keys"),
+                (1, "lsd.records.sort"), (2, "lsd.merge_sort"),
+                (2, "lsd.merge_sort"), (2, "lsd.merge_sort"),
+                (1, "lsd.records.gather")],
 }
 
 
@@ -107,6 +120,15 @@ def test_host_syncs_count_the_values_read():
     assert _counted(CALLS["sort"])["host_syncs"] == 0
     assert _counted(CALLS["join"])["host_syncs"] == 1
     assert _counted(CALLS["agg"])["host_syncs"] == 0   # no padding at N
+
+
+def test_record_bytes_count_the_rows_gathered():
+    # a sort of 3000 records of 100 bytes moves each once; the others
+    # move none
+    assert _counted(CALLS["records"])["record_bytes"] == 3000 * 100
+    assert _counted(CALLS["records"])["host_syncs"] == 0
+    for call in ("sort", "join", "agg"):
+        assert _counted(CALLS[call])["record_bytes"] == 0
 
 
 def test_int64_bytes_count_the_widenings():
