@@ -24,8 +24,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    run_len 2^15 and 2^18, and a 4-run group, plus the signed-val tiebreak
    of sort_tiles_kv (also on the boundary keys); the tile sort and merge
    passes at ncmp = 3 (hi, lo, position), with and without a rider (the
-   tile sort's 3 and 4 words); one cluster_sort launch a tile-sort call
-   of 1..4 words at the 2^15-row tile, and no bitonic_stage; keys alone
+   tile sort's 3 and 4 words); the merge design (tile_merge::cluster_sort:
+   key, payload 0 and the index word) on every family with payload 0 of 3
+   values, 1, 3, 16 and 17 riders, and on views 1-3 words off alignment;
+   one cluster_sort launch a tile-sort call of 1..4 words at the 2^15-row
+   tile, no bitonic_stage, and the design each call takes; keys alone
    at every family at tiles of 2^18 rows (launches as `tile_plan` says)
    and of the bench CLI's sweep, 2^11-2^16 rows; the kv and 3-word tile
    sorts at tiles of 2^18 rows, their stages above the cluster's span as
@@ -160,22 +163,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    is its one caller), and no plain version ran; merge_pass_runs
    launched exactly once a range (2 a chunked sort), the hierarchical
    scan exactly 7 times in the runner; on every path one cluster_sort a
-   tile-sort call (sort_tiles, sort_tiles_kv or sort_tiles_multi), and no
-   bitonic_stage. shuffle_elem_runs has
+   tile-sort call (sort_tiles, sort_tiles_kv or sort_tiles_multi), no
+   bitonic_stage, and each call counted once by its design
+   (TS.DESIGN_CALLS); the query path's rider sorts on the merge design,
+   merge_sort_keys on the network and a one-rider merge_sort_multi on the
+   merge design. shuffle_elem_runs has
    no caller on any path, in either package: its launches are 0. Each
    dist op's path launched its kernels (the tile sorts and merge passes
    of its local sorts, the histogram, the compaction, the fill-forward,
    the scan of the many-to-many join) and no plain version; dist_sort and
    dist_sort_kv exactly 2 cluster_sort and 8 merge passes (two local
    merge sorts of 2^27 rows), dist_join exactly one fill-forward;
-   sort_records of 10-byte keys exactly 3 cluster_sort, 12 merge passes
-   (three sort_lex passes of 2^27 padded rows) and one gather. Then one
+   sort_records of 10-byte keys exactly 3 cluster_sort (all 3 on the merge
+   design), 12 merge passes (three sort_lex passes of 2^27 padded rows)
+   and one gather. Then one
    composed sort at each r = 1, 2, 4, 8 launches block_prefix_sums and
    transpose_tiled 32 / r times each, with no plain call.
 5. Each kernel against its plain version at the main paths' shapes, bit
    for bit, then both timed (CUDA events, median of 5 after a warm-up),
    with one PyTorch call computing the same function beside them where
-   there is one: the tile sorts at n = 2^27 (1, 2 and 3 streams) and
+   there is one: the tile sorts at n = 2^27 (1, 2 and 3 streams), the
+   merge design at the cells' shapes (2^28 rows with a rider, uniform and
+   with Q1's ties; 2^27 rows with three riders), and
    every merge pass of the chain (run 2^15, 2^18, 2^21, 2^24), each fed
    the kernel's previous output, its partition (merge_path_splits) timed
    on its own beside it (the pass's time includes it) and traced, each
@@ -227,6 +236,7 @@ the script fails.
 from __future__ import annotations
 
 import json
+import re
 import sys
 import time
 
@@ -314,16 +324,21 @@ def main() -> int:
     # plan of the paths' 2^15-row tile
     for i, line in enumerate(log):
         if "Compiling entry" in line and "cluster_sort" in line:
-            tmpl = line.split("cluster_sortI")[1].split("EEEv")[0]
+            tmpl = re.search(r"cluster_sortI(.*?)EEv", line).group(1)
+            design = "tile_merge::" if "tile_merge" in line else ""
             props = [x.split(":", 1)[-1].strip() for x in log[i + 1:i + 4]
                      if "Used" in x or "spill" in x]
-            print(f"cluster_sort<{tmpl}>: {'; '.join(props)}")
+            print(f"{design}cluster_sort<{tmpl}>: {'; '.join(props)}")
     for w in (1, 2, 3, 4):
         p = TS.tile_plan(w, 15, 1 << 27)
         print(f"cluster_sort {w} words, 2^15-row tile: C={p.cluster} CTAs "
               f"of 2^{p.rows_log2} rows, E={1 << p.group_log2} rows a "
               f"thread, {p.threads} threads, {p.smem_bytes} B of shared "
               f"memory, {len(p.steps)} steps")
+    print(f"tile_merge::cluster_sort (key, payload 0, index word) at the "
+          f"2^{TS.MERGE_TILE_LOG2}-row tile: C={TS.MERGE_CLUSTER} CTAs of "
+          f"2^{TS.MERGE_ROWS_LOG2} rows, E={1 << TS.MERGE_G} rows a thread, "
+          f"{1 << (TS.MERGE_ROWS_LOG2 - TS.MERGE_G)} threads")
     ceiling = roofline.measure_copy_gbps(dev)
     roof = roofline.detect(dev)
     print(f"copy ceiling: {ceiling:.1f} GB/s (dst.copy_(src) of 1 GiB, read "
@@ -433,6 +448,37 @@ def main() -> int:
             key_and_list(TS.sort_tiles_multi(x, [v0, vals], tile_rows)),
             key_and_list(TS.sort_tiles_multi_plain(x, [v0, vals],
                                                    tile_rows)))
+    # the merge design (tile_merge::cluster_sort: key, payload 0 and the
+    # index word, at the 2^15-row tile): every family, payload 0 with ties
+    # (Q1's 3 values), 1, 3, 16 and 17 riders (17: a second launch
+    # carrying its one rider), and views 1-3 words off alignment
+    riders = [random_keys(n2, 40 + i, dev) for i in range(17)]
+    for fam, xf in families(n2, 9).items():
+        for nr in (1, 3, 16, 17):
+            before = dict(TS.DESIGN_CALLS)
+            compare("sort_tiles_multi", f"{fam} tied val0 riders={nr}",
+                    key_and_list(TS.sort_tiles_multi(xf, [v0, *riders[:nr]],
+                                                     tile_rows)),
+                    key_and_list(TS.sort_tiles_multi_plain(
+                        xf, [v0, *riders[:nr]], tile_rows)))
+            got = {k: v - before[k] for k, v in TS.DESIGN_CALLS.items()}
+            if got != {"network": 0, "merge": 1}:
+                raise AssertionError(f"merge design {fam} riders={nr}: "
+                                     f"design calls {got}")
+    xq = random_keys_bounded(n2 + 4, 0, 4, 41, dev)
+    vq = random_keys_bounded(n2 + 4, 0, 3, 42, dev)
+    rq = random_keys(n2 + 4, 43, dev)
+    for nr in (1, 3):
+        views = [xq[1:n2 + 1], [vq[3:n2 + 3]] + [rq[2:n2 + 2]] * nr]
+        compare("sort_tiles_multi", f"views off alignment riders={nr}",
+                key_and_list(TS.sort_tiles_multi(*views, tile_rows)),
+                key_and_list(TS.sort_tiles_multi_plain(
+                    views[0].contiguous(), [v.contiguous() for v in views[1]],
+                    tile_rows)))
+    del riders, xq, vq, rq
+    print("phase 2: the merge design (key, payload 0, index word): every "
+          "family, tied payload 0, 1/3/16/17 riders, views off alignment: "
+          "bit exact, one merge-design call each")
     n4 = 4 << 15
     k4, v4 = TS.sort_tiles_multi_plain(x[:n4], [v0[:n4], vals[:n4]],
                                        tile_rows)
@@ -464,25 +510,33 @@ def main() -> int:
     # cluster_sort launches
     x = families(n2, 7)["cluster_boundary"]
     calls = {
-        "sort_tiles": (lambda: one(TS.sort_tiles(x, tile_rows)), 1),
+        "sort_tiles": (lambda: one(TS.sort_tiles(x, tile_rows)), 1,
+                       "network"),
         "sort_tiles_kv": (lambda: list(TS.sort_tiles_kv(x, vals,
-                                                        tile_rows)), 2),
+                                                        tile_rows)), 2,
+                          "network"),
         "sort_tiles_multi key+pos+payload": (lambda: key_and_list(
-            TS.sort_tiles_multi(x, [iota, pay], tile_rows)), 3),
+            TS.sort_tiles_multi(x, [iota, pay], tile_rows)), 3, "merge"),
         "sort_tiles_multi ncmp=3": (lambda: key_and_list(
-            TS.sort_tiles_multi(x, [lo3, iota], tile_rows, ncmp=3)), 3),
+            TS.sort_tiles_multi(x, [lo3, iota], tile_rows, ncmp=3)), 3,
+            "network"),
         "sort_tiles_multi ncmp=3 + rider": (lambda: key_and_list(
-            TS.sort_tiles_multi(x, [lo3, iota, pay], tile_rows, ncmp=3)), 4),
+            TS.sort_tiles_multi(x, [lo3, iota, pay], tile_rows, ncmp=3)), 4,
+            "network"),
     }
-    for what, (call, words) in calls.items():
+    for what, (call, words, design) in calls.items():
         before = dict(TS.KERNEL_LAUNCHES)
+        before_d = dict(TS.DESIGN_CALLS)
         call()
         got = {k: v - before[k] for k, v in TS.KERNEL_LAUNCHES.items()}
+        got_d = {k: v - before_d[k] for k, v in TS.DESIGN_CALLS.items()}
         want_l = {"bitonic_stage": 0, "cluster_sort": 1}
+        want_d = {k: int(k == design) for k in TS.DESIGN_CALLS}
         print(f"phase 2: {what} ({words} words) at the 2^15-row tile: "
-              f"kernel launches {got}")
-        if got != want_l:
-            raise AssertionError(f"{what}: launches {got}, not {want_l}")
+              f"kernel launches {got}, design calls {got_d}")
+        if got != want_l or got_d != want_d:
+            raise AssertionError(f"{what}: launches {got}, design calls "
+                                 f"{got_d}, not {want_l}, {want_d}")
     big_rows = (1 << 18) // TS.LANES
     for fam, x in families(n2, 8).items():
         # keys alone at every family: the tile of 2^18 rows (C = 4 CTAs of
@@ -1325,14 +1379,17 @@ def main() -> int:
             for counts in (mod.LAUNCHES, mod.PLAIN_CALLS):
                 for k in counts:
                     counts[k] = 0
-        for k in TS.KERNEL_LAUNCHES:
-            TS.KERNEL_LAUNCHES[k] = 0
+        for counts in (TS.KERNEL_LAUNCHES, TS.DESIGN_CALLS):
+            for k in counts:
+                counts[k] = 0
 
     def read_counts():
         """Launches by wrapper, with the tile sorts' launches by kernel
-        (bitonic_stage, cluster_sort), and plain calls."""
+        (bitonic_stage, cluster_sort) and their calls by design
+        (design.network, design.merge), and plain calls."""
         return ({k: v for mod in modules for k, v in mod.LAUNCHES.items()}
-                | TS.KERNEL_LAUNCHES,
+                | TS.KERNEL_LAUNCHES
+                | {f"design.{k}": v for k, v in TS.DESIGN_CALLS.items()},
                 {k: v for mod in modules for k, v in mod.PLAIN_CALLS.items()})
 
     reset_counts()
@@ -1555,7 +1612,8 @@ def main() -> int:
     sort_kernels = tuple(k for k in sort_launches
                          if k not in query_kernels + shuffle_kernels
                          + ("merge_pass_runs", "exclusive_scan_hierarchical",
-                            "bitonic_stage", "gather_records"))
+                            "bitonic_stage", "gather_records")
+                         and not k.startswith("design."))
     merge_kernels = ("sort_tiles_multi", "merge_path_splits",
                      "merge_pass_multi")
     # each path, its counts, and the kernels it must have launched
@@ -1610,6 +1668,12 @@ def main() -> int:
             raise AssertionError(f"{pname}: tile sort kernel launches "
                                  f"{ {k: lc[k] for k in tiles} }, not "
                                  f"{tiles}")
+        # each tile-sort call counted once, by the design that sorted it
+        if lc["design.network"] + lc["design.merge"] != tiles["cluster_sort"]:
+            raise AssertionError(f"{pname}: design calls "
+                                 f"{lc['design.network']} + "
+                                 f"{lc['design.merge']}, not "
+                                 f"{tiles['cluster_sort']} tile sorts")
         if any(pc.values()):
             raise AssertionError(f"{pname}: plain versions ran")
     # exact counts: merge_pass_runs once a range, NRANGES a chunked sort
@@ -1621,6 +1685,11 @@ def main() -> int:
     exact = {"chunked": ("merge_pass_runs", chunked_launches,
                          2 * 2 * FL.NRANGES),
              "records (cluster_sort)": ("cluster_sort", records_launches, 3),
+             # each sort_lex pass sorts (word, word, index) with riders:
+             # the merge design
+             "records (merge design)": ("design.merge", records_launches,
+                                        3),
+             "records (network)": ("design.network", records_launches, 0),
              "records (merge passes)": ("merge_pass_multi", records_launches,
                                         12),
              "records (gather)": ("gather_records", records_launches, 1),
@@ -1644,6 +1713,24 @@ def main() -> int:
         if lc[k] != want_n:
             raise AssertionError(f"{pname}: {k} launched {lc[k]} times, "
                                  f"not {want_n}")
+    # the rider path (the merge join, Q1's sums) takes the merge design; the
+    # keys path keeps the network
+    if query_launches["design.merge"] == 0:
+        raise AssertionError("query path: no tile sort took the merge design")
+    xk = random_keys(1 << 22, 44, dev)
+    for what, call, want_d in (
+            ("merge_sort_keys (keys)", lambda: merge_sort_keys(xk),
+             {"network": 1, "merge": 0}),
+            ("merge_sort_multi (a rider)",
+             lambda: _merge_sort_multi(xk, [iota_u32(1 << 22, dev), xk], 15),
+             {"network": 0, "merge": 1})):
+        reset_counts()
+        call()
+        print(f"phase 4: {what}: design calls {dict(TS.DESIGN_CALLS)}")
+        if dict(TS.DESIGN_CALLS) != want_d:
+            raise AssertionError(f"{what}: design calls "
+                                 f"{dict(TS.DESIGN_CALLS)}, not {want_d}")
+    del xk
     # one composed sort at each r: the row scans and the transpose launch
     # once a pass, 32 / r times a sort
     for r in (1, 2, 4, 8):
@@ -1809,6 +1896,24 @@ def main() -> int:
             del library
             run *= M.KWAY
         del streams
+    # the merge design at the cells' shapes: the join's and Q1's 2^28 rows
+    # with one rider (uniform keys; Q1's 4 keys and 3 payload values), the
+    # records' 2^27 rows with three riders
+    for what, lg, few, nr in (("uniform, a rider", 28, None, 1),
+                              ("Q1 ties, a rider", 28, (4, 3), 1),
+                              ("uniform, three riders", 27, None, 3)):
+        nn = 1 << lg
+        if few is None:
+            k_, v_ = random_keys(nn, 50, dev), iota_u32(nn, dev)
+        else:
+            k_ = random_keys_bounded(nn, 0, few[0], 51, dev)
+            v_ = random_keys_bounded(nn, 0, few[1], 52, dev)
+        rs = [random_keys(nn, 53 + i, dev) for i in range(nr)]
+        check_and_time("sort_tiles_multi", f"merge design, {what}",
+                       TS.sort_tiles_multi, TS.sort_tiles_multi_plain,
+                       (k_, [v_, *rs], tile_rows), 2 * 4 * nn * (2 + nr),
+                       key_and_list, elems=nn)
+        del k_, v_, rs
     # the 64-bit chain at n = 2^27: (hi, lo, position) compared, ncmp = 3
     streams = check_and_time(
         "sort_tiles_multi", "hi+lo+pos ncmp=3",

@@ -15,7 +15,8 @@ other. Every output is hashed, and the four turns must agree bit for bit.
 
 Cases, on uniform keys made here from seeds (and all-equal keys): the
 keys-only, key+pos and key+pos+payload tile sorts of 2^27 rows at the
-2^15-row tile; the histograms of 2^27 uniform and all-equal keys at
+2^15-row tile, and key+pos with three riders (the records' sort_lex
+passes); the histograms of 2^27 uniform and all-equal keys at
 r = 8, 4, 2, 1, block 2^13; the flagship's histogram of 2^30 keys at
 r = 4, block 512; the compaction (`compact_stream_multi`) of the query
 path's 10^8 rows padded to a multiple of 2^15 under random masks of
@@ -107,6 +108,8 @@ def worker(only: str) -> dict:
                 "iota": torch.arange(n, dtype=torch.int32,
                                      device=dev).view(torch.uint32),
                 "pay": keys_of(n, 2),
+                "pay2": keys_of(n, 3),
+                "pay3": keys_of(n, 5),
                 "all-equal": torch.full((n,), 0x5EEDBEEF, dtype=torch.int32,
                                         device=dev).view(torch.uint32),
                 "big": keys_of(1 << 30, 11)}
@@ -183,7 +186,11 @@ def worker(only: str) -> dict:
         "sort_tiles_multi key+pos+payload n=2^27":
             lambda: TS.sort_tiles_multi(d()["keys"], [d()["iota"],
                                                       d()["pay"]],
-                                        tile_rows)}
+                                        tile_rows),
+        "sort_tiles_multi key+pos+3 payloads n=2^27":
+            lambda: TS.sort_tiles_multi(
+                d()["keys"], [d()["iota"], d()["pay"], d()["pay2"],
+                              d()["pay3"]], tile_rows)}
     for fam in ("uniform", "all-equal"):
         for r in (8, 4, 2, 1):
             cases[f"histogram {fam} r={r} block=2^13 n=2^27"] = (

@@ -1,4 +1,5 @@
-// Per-tile bitonic sort for Hopper (sm_90a).
+// Per-tile sorts for Hopper (sm_90a): a bitonic network for every word
+// count, and a stable merge sort for the rider path (tile_merge, below).
 //
 // Replaces the Pallas kernels of lsdradixsort_tpu/kernels/tile_sort.py:
 // sort_tiles (_bitonic_keys_kernel), sort_tiles_kv (_bitonic_kernel) and
@@ -54,6 +55,48 @@
 // stages of distance >= C*R as device-memory passes (bitonic_stage), one
 // thread a pair, and the cluster kernel finishes each phase's lower
 // stages.
+//
+// The merge design, tile_merge::cluster_sort, sorts the rider path's tiles
+// (kernels/tile_sort.py `design`): (key, payload 0, index word) at the
+// 2^15-row tile, every sort_tiles_multi call at ncmp = 2 with riders (the
+// merge join, Q1's sums, each sort_lex pass of sort_records). It is exact
+// because the index word is compared last and no two rows of a tile share
+// it: the sorted order is unique, so a stable sort by (key, payload 0),
+// ties in index order, gives the network's output bit for bit, riders
+// included. A stable merge compares the two words as one 64-bit integer
+// and carries the index uncompared: one compare a row a level, 11 levels,
+// where the network makes 60 compare-exchanges of three words a row. A
+// cluster of 4 CTAs a tile, 2^13 rows a CTA, 16 a thread (512 threads):
+//   - each thread sorts its 16 consecutive rows in registers by (key,
+//     payload 0, index) (the bitonic network above) and writes them to
+//     shared memory: (key, payload 0) pairs, 8 bytes a row, and the
+//     indices (16 bits) in an array beside them;
+//   - 9 levels inside the CTA, each a stable merge of pairs of runs from
+//     one buffer to the other: a thread writes 16 consecutive outputs, a
+//     merge-path binary search for the first, then a sequential merge with
+//     both candidate rows in registers (one 8-byte load and one index load
+//     an output, selected, not branched on); a pad slot after every 16
+//     rows keeps the 16 threads of a store in distinct banks;
+//   - 2 levels across the cluster (pairs of CTAs, then all 4), each CTA
+//     writing its 2^13 ranks of the merge: the two cuts of its ranks in the
+//     two runs (256 probes a round, counted with __syncthreads_count, two
+//     rounds), a copy of that window of rows from the CTAs that hold them
+//     (distributed shared memory, each row read once) into its free
+//     buffer, a cluster barrier, then a merge as inside the CTA. Merging
+//     straight from the other CTAs' memory made each step wait on a remote
+//     load: 59 % of a CTA's cycles;
+//   - the CTA's ranks out, coalesced, and each rider gathered by the index
+//     word from the tile's rows.
+// Two buffers of 2^13 rows (10 bytes a row, with the pads) take 174 KB:
+// one CTA an SM. What bounds it on the H100: the levels' shared-memory
+// wavefronts (a random 8-byte and a random 2-byte load an output, with
+// bank conflicts, and the searches' loads; a level costs the same at one
+// CTA an SM and at two), the cluster barriers' waits and the windows'
+// copies, and each rider's gather, whose random 4-byte loads move a
+// 32-byte sector from L2 each. Carrying a lone rider in place of the
+// index (no gather), the last level's outputs stored straight from
+// registers, and two CTAs an SM (one buffer of rows, written back after
+// each level) were each no faster on the card.
 #include <cstdint>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -679,7 +722,355 @@ cudaError_t sort_cluster(const Words& io, const Riders& rd, const int* code,
   return cudaSuccess;
 }
 
+// ---- the merge design (tile_merge::cluster_sort) ---------------------------
+
+namespace tile_merge {
+
+// A launch's compared words (the index word is made in the kernel) and
+// where they go; a null output is not stored.
+struct IO {
+  const uint32_t* key;
+  const uint32_t* val;
+  uint32_t* key_out;
+  uint32_t* val_out;
+};
+
+// Row (key, payload 0) as the 64-bit integer it orders by.
+__device__ __forceinline__ unsigned long long word64(uint2 r) {
+  return (static_cast<unsigned long long>(r.x) << 32) | r.y;
+}
+
+// The shared-memory slot of a CTA's row q: a pad slot after every 2^G
+// rows, so that the 2^G consecutive rows each thread writes at a level
+// start 2^G + 1 slots apart (16 threads' 8-byte stores, no bank conflict).
+template <int G>
+__device__ __forceinline__ int slot(int q) {
+  return q + (q >> G);
+}
+
+// Slots of one buffer: the rows, their pads, and one slot past the end,
+// which a finished run's read-ahead may touch.
+template <int G, int RLOG>
+__host__ __device__ constexpr int buffer_slots() {
+  return (1 << RLOG) + (1 << (RLOG - G)) + 2;
+}
+
+// A CTA's shared memory: two buffers of the rows as (key, payload 0)
+// pairs and of their indices in the tile (16 bits), a level's two cuts.
+template <int G, int RLOG>
+__host__ __device__ constexpr int merge_smem() {
+  return buffer_slots<G, RLOG>() * 2 * (8 + 2) + 16;
+}
+
+// Row q of a level's input inside a CTA: kv and ix are its rows' buffers.
+template <int G>
+struct Rows {
+  const uint2* kv;
+  const uint16_t* ix;
+  __device__ __forceinline__ uint2 row(int q) const { return kv[slot<G>(q)]; }
+  __device__ __forceinline__ uint32_t index(int q) const {
+    return ix[slot<G>(q)];
+  }
+};
+
+// Row q of a level's input across the cluster, its rows in rank order:
+// slot q mod 2^RLOG of CTA q >> RLOG's buffers (distributed shared
+// memory).
+template <int G, int RLOG>
+struct ClusterRows {
+  cg::cluster_group cluster;
+  uint2* kv;
+  uint16_t* ix;
+  __device__ __forceinline__ uint2 row(int q) const {
+    return *cluster.map_shared_rank(kv + slot<G>(q & ((1 << RLOG) - 1)),
+                                    q >> RLOG);
+  }
+  __device__ __forceinline__ uint32_t index(int q) const {
+    return *cluster.map_shared_rank(ix + slot<G>(q & ((1 << RLOG) - 1)),
+                                    q >> RLOG);
+  }
+};
+
+// The thread's 2^G outputs of a level: ranks [d, d + 2^G) of the stable
+// merge of runs [0, mid) and [mid, hi) of `src` (ties go to the left run,
+// whose rows have the lower indices), written to dkv's and dix's slots
+// from row d. A merge-path search for the first, then a sequential merge
+// with both candidate rows in registers: one row and one index read an
+// output, the read position selected, not branched on.
+template <int G, class R>
+__device__ __forceinline__ void merge_out(const R& src, int mid, int hi,
+                                          int d, uint2* dkv, uint16_t* dix) {
+  constexpr int E = 1 << G;
+  // a: rows of the left run among the merge's first d
+  int a = d > hi - mid ? d - (hi - mid) : 0, e = d < mid ? d : mid;
+  while (a < e) {
+    const int h = (a + e) >> 1;
+    if (word64(src.row(mid + d - 1 - h)) < word64(src.row(h))) {
+      e = h;
+    } else {
+      a = h + 1;
+    }
+  }
+  int pa = a, pb = mid + d - a;
+  uint2 ra = src.row(pa), rb = src.row(pb);
+  uint32_t xa = src.index(pa), xb = src.index(pb);
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    const bool take_a =
+        (pb >= hi) | ((pa < mid) & (word64(ra) <= word64(rb)));
+    dkv[slot<G>(d + k)] = take_a ? ra : rb;
+    dix[slot<G>(d + k)] = static_cast<uint16_t>(take_a ? xa : xb);
+    if (k + 1 < E) {
+      pa += take_a;
+      pb += !take_a;
+      const int q = take_a ? pa : pb;
+      const uint2 c = src.row(q);
+      const uint32_t xc = src.index(q);
+      ra = take_a ? c : ra;
+      xa = take_a ? xc : xa;
+      rb = take_a ? rb : c;
+      xb = take_a ? xb : xc;
+    }
+  }
+}
+
+// The co-ranks of this CTA's first and last ranks, d0 and d0 + 2^RLOG, in
+// the merge of A = src rows [lo, lo + w) and B = [lo + w, lo + 2w): the
+// rows of A among the merge's first d. Half the CTA's threads a cut, each
+// probing one candidate a round; "B's row before A's" turns from false to
+// true once along A, so the false probes, counted by __syncthreads_count,
+// narrow the cut H-fold a round.
+template <int G, int RLOG, int C, class R>
+__device__ __forceinline__ void coranks(const R& src, int lo, int w, int d0,
+                                        int* cut) {
+  constexpr int H = ((1 << RLOG) >> G) / 2;
+  constexpr int HLOG = RLOG - G - 1;
+  constexpr int CLOG = C == 8 ? 3 : C == 4 ? 2 : 1;
+  // candidates span at most 2^(RLOG + CLOG - 1) rows
+  constexpr int kRounds = (RLOG + CLOG - 1 + HLOG - 1) / HLOG;
+  const int half = static_cast<int>(threadIdx.x) >= H;
+  const int j = static_cast<int>(threadIdx.x) - half * H;
+  const int d = d0 + (half << RLOG);
+  int a = d > w ? d - w : 0, e = d < w ? d : w;
+#pragma unroll
+  for (int round = 0; round < kRounds; ++round) {
+    const int step = (e - a + H - 1) / H;
+    const int h = a + j * step;
+    const bool before_cut =
+        h < e && !(word64(src.row(lo + w + d - 1 - h)) <
+                   word64(src.row(lo + h)));
+    const int n0 = __syncthreads_count(before_cut && !half);
+    const int n1 = __syncthreads_count(before_cut && half);
+    const int nf = half ? n1 : n0;
+    const int na = nf == 0 ? a : a + (nf - 1) * step + 1;
+    e = min(e, a + nf * step);
+    a = na;
+  }
+  if (j == 0) cut[half] = a;
+}
+
+// One cluster of C CTAs a tile of C * 2^RLOG rows, each CTA 2^RLOG of
+// them, 2^G a thread; see the header. The rows of a level move between
+// the CTA's two buffers. A level across CTAs first copies the rows its
+// ranks draw on (a window of each of the two runs, found by `coranks`)
+// from the CTAs that hold them, then merges them here.
+template <int G, int RLOG, int C>
+__global__ void __launch_bounds__((1 << RLOG) >> G, 1)
+cluster_sort(IO io, Riders rd) {
+  constexpr int E = 1 << G, R = 1 << RLOG, THREADS = R >> G;
+  constexpr int S = buffer_slots<G, RLOG>();
+  extern __shared__ __align__(16) unsigned char merge_sm[];
+  // buffer b's rows and indices, their addresses taken from merge_sm each
+  // time (so the compiler sees shared memory); `in` holds a level's
+  // input, in ^ 1 its output
+  int in = 0;
+  auto kv_of = [&](int b) {
+    return reinterpret_cast<uint2*>(merge_sm) + b * S;
+  };
+  auto ix_of = [&](int b) {
+    return reinterpret_cast<uint16_t*>(kv_of(2)) + b * S;
+  };
+  int* const cut = reinterpret_cast<int*>(ix_of(2));
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(blockIdx.x) & (C - 1);
+  const int t = threadIdx.x;
+  const long long base = static_cast<long long>(blockIdx.x) << RLOG;
+  const long long tile = base - (static_cast<long long>(rank) << RLOG);
+  // the thread's 2^G consecutive rows, sorted in registers by (key,
+  // payload 0, index): a bitonic network
+  {
+    uint32_t v[3][E];
+    const long long r0 = base + (t << G);
+    if (((reinterpret_cast<uintptr_t>(io.key + base) |
+          reinterpret_cast<uintptr_t>(io.val + base)) & 15) == 0) {
+      const uint4* pk = reinterpret_cast<const uint4*>(io.key + r0);
+      const uint4* pv = reinterpret_cast<const uint4*>(io.val + r0);
+#pragma unroll
+      for (int q = 0; q < E / 4; ++q) {
+        const uint4 x = pk[q], y = pv[q];
+        v[0][4 * q] = x.x, v[0][4 * q + 1] = x.y;
+        v[0][4 * q + 2] = x.z, v[0][4 * q + 3] = x.w;
+        v[1][4 * q] = y.x, v[1][4 * q + 1] = y.y;
+        v[1][4 * q + 2] = y.z, v[1][4 * q + 3] = y.w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        v[0][e] = io.key[r0 + e];
+        v[1][e] = io.val[r0 + e];
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      v[2][e] = static_cast<uint32_t>((rank << RLOG) | (t << G) | e);
+    first_phases<3, G>(v, G, G, 0u);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int s = slot<G>((t << G) + e);
+      kv_of(0)[s] = make_uint2(v[0][e], v[1][e]);
+      ix_of(0)[s] = static_cast<uint16_t>(v[2][e]);
+    }
+  }
+  __syncthreads();
+  // levels inside the CTA: runs of 2^G, 2^(G+1), .. rows merged in pairs;
+  // a segment's slots start at slot(lo), so it reads and writes through
+  // pointers offset by that
+#pragma unroll
+  for (int w = E; w < R; w <<= 1) {
+    const int o0 = t << G, lo = o0 & ~(2 * w - 1), off = slot<G>(lo);
+    merge_out<G>(Rows<G>{kv_of(in) + off, ix_of(in) + off}, w, 2 * w,
+                 o0 - lo, kv_of(in ^ 1) + off, ix_of(in ^ 1) + off);
+    __syncthreads();
+    in ^= 1;
+  }
+  // levels across the cluster: each CTA's ranks of the merge of runs that
+  // span 1, 2, .. CTAs (the cluster's rows in rank order)
+#pragma unroll
+  for (int w = R; w < C * R; w <<= 1) {
+    cluster.sync();  // the level's input is in place in every CTA
+    const ClusterRows<G, RLOG> src{cluster, kv_of(in), ix_of(in)};
+    const int lo = (rank << RLOG) & ~(2 * w - 1), d0 = (rank << RLOG) - lo;
+    coranks<G, RLOG, C>(src, lo, w, d0, cut);
+    __syncthreads();
+    // the window into the other buffer: A's rows [a0, a1), then B's
+    // [d0 - a0, d0 + R - a1)
+    const int a0 = cut[0], na = cut[1] - a0;
+    const int b0 = lo + w + d0 - a0 - na;
+    uint2 r[E];
+    uint32_t x[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int i = t + e * THREADS;
+      const int q = i < na ? lo + a0 + i : b0 + i;
+      r[e] = src.row(q);
+      x[e] = src.index(q);
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int s = slot<G>(t + e * THREADS);
+      kv_of(in ^ 1)[s] = r[e];
+      ix_of(in ^ 1)[s] = static_cast<uint16_t>(x[e]);
+    }
+    // every CTA's copies are done: the level's input may be overwritten
+    cluster.sync();
+    merge_out<G>(Rows<G>{kv_of(in ^ 1), ix_of(in ^ 1)}, na, R, t << G,
+                 kv_of(in), ix_of(in));
+    __syncthreads();
+  }
+  // the CTA's ranks out, coalesced: the compared words, then each rider
+  // gathered by the index word
+  if (io.key_out != nullptr) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int i = t + e * THREADS;
+      const uint2 r = kv_of(in)[slot<G>(i)];
+      io.key_out[base + i] = r.x;
+      io.val_out[base + i] = r.y;
+    }
+  }
+  for (int k = 0; k < rd.count; ++k) {
+    uint32_t y[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int i = t + e * THREADS;
+      y[e] = rd.src[k][tile + ix_of(in)[slot<G>(i)]];
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) rd.dst[k][base + t + e * THREADS] = y[e];
+  }
+}
+
+// The built geometry: clusters of 4 CTAs of 2^13 rows, 16 rows a thread
+// (512 threads; 174 KB of shared memory a CTA). kernels/tile_sort.py
+// MERGE_G, MERGE_ROWS_LOG2 and MERGE_CLUSTER mirror it.
+constexpr int kG = 4, kRowsLog2 = 13, kCluster = 4;
+
+template <int G, int RLOG, int C>
+cudaError_t launch(const IO& io, const Riders& rd, long long n,
+                   cudaStream_t stream) {
+  auto kern = cluster_sort<G, RLOG, C>;
+  constexpr int smem = merge_smem<G, RLOG>();
+  static_assert(smem <= kSmemLimit, "a CTA's buffers must fit");
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n >> RLOG));
+  cfg.blockDim = dim3((1 << RLOG) >> G);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, kern, io, rd);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+}  // namespace tile_merge
+
 }  // namespace
+
+// Sort every tile of 2^15 rows of (key, val, index) with the merge design
+// (tile_merge::cluster_sort; see the header): n a multiple of 2^15, the
+// words compared unsigned, key first, ties in index order;
+// rider_dst[k][row] = rider_src[k][tile_base + index]. key_out and val_out
+// are both given or both null (not stored). Returns a cudaError_t; a
+// refused cluster launch returns the occupancy query's error or
+// cudaErrorLaunchOutOfResources.
+extern "C" int lsd_sort_tiles_merge(const void* key, const void* val,
+                                    void* key_out, void* val_out,
+                                    long long n, const void* const* rider_src,
+                                    void* const* rider_dst, int nriders,
+                                    void* stream) {
+  using namespace tile_merge;
+  constexpr int tile_log2 = kRowsLog2 + (kCluster == 4 ? 2 : 1);
+  if (key == nullptr || val == nullptr || n < 0 ||
+      n % (1LL << tile_log2) != 0 || (key_out == nullptr) != (val_out == nullptr) ||
+      nriders < 0 || nriders > kMaxRiders) {
+    return cudaErrorInvalidValue;
+  }
+  if (n == 0) return cudaSuccess;
+  const IO io{static_cast<const uint32_t*>(key),
+              static_cast<const uint32_t*>(val),
+              static_cast<uint32_t*>(key_out), static_cast<uint32_t*>(val_out)};
+  Riders rd{};
+  rd.count = nriders;
+  for (int k = 0; k < nriders; ++k) {
+    rd.src[k] = static_cast<const uint32_t*>(rider_src[k]);
+    rd.dst[k] = static_cast<uint32_t*>(rider_dst[k]);
+  }
+  return launch<kG, kRowsLog2, kCluster>(io, rd, n,
+                                         static_cast<cudaStream_t>(stream));
+}
 
 // Sort every tile of 2^tile_log2 rows of `nwords` (1..4) u32 words; n a
 // multiple of the tile, 1 <= tile_log2 <= 30, with cluster_sort: clusters

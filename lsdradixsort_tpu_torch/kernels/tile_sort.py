@@ -14,11 +14,14 @@ Every tile of ``tile_rows * 128`` rows is sorted ascending:
     to the network; the port sorts riders stably (by their row index),
     which is one of those orders.
 
-On a CUDA tensor each wrapper launches the hand-written kernel in
+On a CUDA tensor each wrapper launches a hand-written kernel in
 ``csrc/tile_sort.cu`` (its header says what bounds it on the H100 and how
-the design copes); on a CPU tensor it runs the plain PyTorch version
-beside it, which `chip_smoke.py` also runs on the card to check the
-kernel. `LAUNCHES` counts kernel launches per wrapper and `PLAIN_CALLS`
+the design copes): a bitonic network for every word count, or, for the
+rider path (key, payload 0 and the index word at the 2^15-row tile), a
+stable merge sort (`design` picks it from the words). On a CPU tensor it
+runs the plain PyTorch version beside them, which `chip_smoke.py` also
+runs on the card to check the kernels. `LAUNCHES` counts kernel launches
+per wrapper, `DESIGN_CALLS` tile-sort calls by design, and `PLAIN_CALLS`
 runs of the plain versions. `interpret` and `ce` are the TPU's lowering
 knobs, in the JAX package's argument order: accepted and ignored.
 """
@@ -124,8 +127,23 @@ SORT_ARGTYPES = [
     ctypes.c_int, ctypes.c_void_p]
 
 # CUDA kernel launches of the tile sorts, by kernel (a wrapper call counts
-# one in LAUNCHES and its kernels' launches here)
+# one in LAUNCHES and its kernels' launches here; both designs launch a
+# kernel named cluster_sort)
 KERNEL_LAUNCHES = {"bitonic_stage": 0, "cluster_sort": 0}
+# tile-sort calls on the card, by the design that sorted them (`design`)
+DESIGN_CALLS = {"network": 0, "merge": 0}
+
+# The merge design (csrc/tile_sort.cu tile_merge::cluster_sort): its tile,
+# clusters of MERGE_CLUSTER CTAs of 2^MERGE_ROWS_LOG2 rows, 2^MERGE_G rows
+# a thread (the CTA's threads: 2^(rows - G)); csrc kG, kRowsLog2, kCluster
+MERGE_TILE_LOG2 = 15
+MERGE_CLUSTER, MERGE_ROWS_LOG2, MERGE_G = 4, 13, 4
+# lsd_sort_tiles_merge(key, val, key_out, val_out, n, riders, rider_dst,
+# nriders, stream)
+MERGE_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p]
 
 
 class Step(NamedTuple):
@@ -246,40 +264,83 @@ def tile_plan(nwords: int, tile_log2: int, n: int = 0) -> TilePlan:
                     tuple(_schedule(tile_log2, rows_log2, span, g)))
 
 
+def design(words, tile_log2: int) -> str:
+    """Which design of csrc/tile_sort.cu sorts these words: "merge"
+    (tile_merge::cluster_sort) for (key, payload 0, index word) at the
+    2^15-row tile, the rider path of `sort_tiles_multi` at ncmp = 2;
+    "network" (the bitonic cluster_sort) for every other word count and
+    tile."""
+    merge = (len(words) == 3 and words[-1] is None
+             and tile_log2 == MERGE_TILE_LOG2)
+    return "merge" if merge else "network"
+
+
+def _stream(key: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(key.device).cuda_stream)
+
+
+def _launch_network(words, dst, riders, outs, plan: TilePlan,
+                    flip1: bool) -> None:
+    key = words[0]
+    with torch.cuda.device(key.device):
+        sort = _build.function("lsd_sort_tiles", SORT_ARGTYPES)
+        code = (ctypes.c_int * len(plan.steps))(*[s.code for s in plan.steps])
+        _build.check(sort(
+            _build.pointers(words), _build.pointers(dst), len(words),
+            key.shape[0], plan.tile_log2, _SIGN if flip1 else 0,
+            plan.cluster, plan.rows_log2, plan.group_log2, code, len(code),
+            _build.pointers(riders), _build.pointers(outs), len(riders),
+            _stream(key)), "lsd_sort_tiles")
+
+
+def _launch_merge(words, dst, riders, outs) -> None:
+    key, val = words[0], words[1]
+    with torch.cuda.device(key.device):
+        sort = _build.function("lsd_sort_tiles_merge", MERGE_ARGTYPES)
+        _build.check(sort(
+            key.data_ptr(), val.data_ptr(),
+            None if dst[0] is None else dst[0].data_ptr(),
+            None if dst[1] is None else dst[1].data_ptr(), key.shape[0],
+            _build.pointers(riders), _build.pointers(outs), len(riders),
+            _stream(key)), "lsd_sort_tiles_merge")
+
+
 def _sort_words(words, riders, tile_log2: int, flip1: bool):
     """Sort the tiles of `words` (u32 streams, the key first; None for the
     row-index word, last, when riders ride) with csrc/tile_sort.cu
-    `cluster_sort`, which gathers the riders by the index word. Returns
-    the sorted words (index word dropped) and riders."""
+    `cluster_sort` of the design `design` picks, which gathers the riders
+    by the index word. Returns the sorted words (index word dropped) and
+    riders."""
     key = words[0]
-    n = key.shape[0]
-    stream = ctypes.c_void_p(torch.cuda.current_stream(key.device).cuda_stream)
-    with torch.cuda.device(key.device):
-        sort = _build.function("lsd_sort_tiles", SORT_ARGTYPES)
-        plan = tile_plan(len(words), tile_log2, n)
-        code = (ctypes.c_int * len(plan.steps))(*[s.code for s in plan.steps])
+    which = design(words, tile_log2)
+    DESIGN_CALLS[which] += 1
+    if which == "merge":
+        stored = False
+        launches = {"bitonic_stage": 0, "cluster_sort": 1}
+    else:
+        plan = tile_plan(len(words), tile_log2, key.shape[0])
         # the index word reaches device memory only for the stages above
-        # the cluster's span; each batch of riders past the first sorts
-        # again and keeps only its riders
+        # the cluster's span
         stored = any(s.kind == STAGE for s in plan.steps)
-        batches = [riders[i:i + MAX_RIDERS]
-                   for i in range(0, len(riders), MAX_RIDERS)] or [[]]
-        out_r = []
-        for i, batch in enumerate(batches):
-            dst = [torch.empty_like(key)
-                   if stored or (i == 0 and w is not None) else None
-                   for w in words]
-            outs = [torch.empty_like(r) for r in batch]
-            _build.check(sort(
-                _build.pointers(words), _build.pointers(dst), len(words), n,
-                tile_log2, _SIGN if flip1 else 0, plan.cluster,
-                plan.rows_log2, plan.group_log2, code, len(code),
-                _build.pointers(batch), _build.pointers(outs), len(batch),
-                stream), "lsd_sort_tiles")
-            _count(plan.launches())
-            if i == 0:
-                out_w = dst[:-1] if words[-1] is None else dst
-            out_r += outs
+        launches = plan.launches()
+    # each batch of riders past the first sorts again and keeps only its
+    # riders
+    batches = [riders[i:i + MAX_RIDERS]
+               for i in range(0, len(riders), MAX_RIDERS)] or [[]]
+    out_r = []
+    for i, batch in enumerate(batches):
+        dst = [torch.empty_like(key)
+               if stored or (i == 0 and w is not None) else None
+               for w in words]
+        outs = [torch.empty_like(r) for r in batch]
+        if which == "merge":
+            _launch_merge(words, dst, batch, outs)
+        else:
+            _launch_network(words, dst, batch, outs, plan, flip1)
+        _count(launches)
+        if i == 0:
+            out_w = dst[:-1] if words[-1] is None else dst
+        out_r += outs
     return out_w, out_r
 
 

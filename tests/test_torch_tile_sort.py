@@ -149,14 +149,17 @@ def test_cpu_wrappers_run_plain_versions_only():
     k = from_numpy(np.arange(1024, dtype=np.uint32)[::-1].copy())
     launches = dict(T.LAUNCHES)
     kernels = dict(T.KERNEL_LAUNCHES)
+    designs = dict(T.DESIGN_CALLS)
     plain = dict(T.PLAIN_CALLS)
     T.sort_tiles(k, tile_rows=8)
     T.sort_tiles_kv(k, k, tile_rows=8)
     T.sort_tiles_multi(k, [k, k], tile_rows=8)
+    T.sort_tiles_multi(k.repeat(32), [k.repeat(32)] * 2, tile_rows=256)
     assert T.LAUNCHES == launches
     assert T.KERNEL_LAUNCHES == kernels
+    assert T.DESIGN_CALLS == designs
     assert {n: T.PLAIN_CALLS[n] - plain[n] for n in plain} == {
-        "sort_tiles": 1, "sort_tiles_kv": 1, "sort_tiles_multi": 1}
+        "sort_tiles": 1, "sort_tiles_kv": 1, "sort_tiles_multi": 2}
 
 
 def test_invalid_inputs_raise():
@@ -374,3 +377,286 @@ def test_sort_tiles_multi_cluster_tile_ncmp3_matches_jax(cluster_tile):
                                 tile_rows=CLUSTER_ROWS, ncmp=3)
     for g, w in zip(_port([gk, *gv]), _np([wk, *wv])):
         np.testing.assert_array_equal(g, w)
+
+
+# --- the merge design (csrc/tile_sort.cu tile_merge::cluster_sort) ---------
+#
+# The rider path of sort_tiles_multi (key, payload 0, index word) at the
+# 2^15-row tile. The model below runs the kernel's steps on numpy rows:
+# each thread's 2^G rows sorted in registers by (key, payload 0, index),
+# levels of merge-path merges inside each CTA (a search for the thread's
+# first output, then 2^G sequential steps, ties to the left run), then
+# the levels across the cluster (each CTA's two cuts found by H-ary
+# rounds of probes, its window copied, merged), then the riders gathered
+# by the carried index.
+
+def _src_constants():
+    import re
+    from pathlib import Path
+    src = (Path(T.__file__).resolve().parent.parent / "csrc"
+           / "tile_sort.cu").read_text()
+    m = re.search(r"constexpr int kG = (\d+), kRowsLog2 = (\d+), "
+                  r"kCluster = (\d+);", src)
+    return tuple(int(x) for x in m.groups())
+
+
+def _cut(words, lo, mid, hi, d):
+    """Rows of run A = words[lo:mid] among the first d of the stable
+    merge with B = words[mid:hi] (vectorised over d): the kernel's
+    merge-path binary search."""
+    a = np.maximum(d - (hi - mid), 0)
+    e = np.minimum(d, mid - lo)
+    while np.any(a < e):
+        on = a < e
+        h = (a + e) >> 1
+        b_first = (words[np.where(on, mid + d - 1 - h, lo)]
+                   < words[np.where(on, lo + h, lo)])
+        e = np.where(on & b_first, h, e)
+        a = np.where(on & ~b_first, h + 1, a)
+    return a
+
+
+def _cut_rounds(words, lo, w, d, h_probes, rounds):
+    """The same cut as csrc `coranks` finds it: each round h_probes evenly
+    spaced candidates, the false ones counted."""
+    a, e = max(d - w, 0), min(d, w)
+    for _ in range(rounds):
+        step = (e - a + h_probes - 1) // h_probes
+        h = a + np.arange(h_probes) * step
+        ok = h < e
+        b_row = np.where(ok, lo + w + d - 1 - h, lo)
+        a_row = np.where(ok, lo + h, lo)
+        before = ok & ~(words[b_row] < words[a_row])
+        nf = int(before.sum())
+        na = a if nf == 0 else a + (nf - 1) * step + 1
+        e = min(e, a + nf * step)
+        a = na
+    assert a == e
+    return a
+
+
+def _merge_steps(words, carried, mid, hi, d, g):
+    """Each thread's 2^g outputs (ranks d..) of the stable merge of
+    words[:mid] and words[mid:hi] (vectorised over threads): a search,
+    then sequential steps with the read position selected."""
+    n = len(words)
+    a = _cut(words, 0, mid, hi, d)
+    pa, pb = a, mid + d - a
+    out_w = np.empty((len(d), 1 << g), words.dtype)
+    out_c = np.empty((len(d), 1 << g), carried.dtype)
+    for k in range(1 << g):
+        ra, rb = words[np.minimum(pa, n - 1)], words[np.minimum(pb, n - 1)]
+        take_a = (pb >= hi) | ((pa < mid) & (ra <= rb))
+        out_w[:, k] = np.where(take_a, ra, rb)
+        out_c[:, k] = np.where(take_a, carried[np.minimum(pa, n - 1)],
+                               carried[np.minimum(pb, n - 1)])
+        pa, pb = pa + take_a, pb + ~take_a
+    return out_w.reshape(-1), out_c.reshape(-1)
+
+
+def _model_merge_tile(keys, vals, riders, g, rlog, c):
+    """One tile of c * 2^rlog rows through tile_merge::cluster_sort's
+    steps; returns (keys, vals, riders) as the kernel stores them."""
+    e_rows, r_rows = 1 << g, 1 << rlog
+    words = keys.astype(np.uint64) << np.uint64(32) | vals.astype(np.uint64)
+    index = np.arange(c * r_rows)
+    carried = index.copy()
+    # registers: each thread's 2^g consecutive rows by (word, index)
+    order = np.lexsort((index.reshape(-1, e_rows),
+                        words.reshape(-1, e_rows)), axis=-1)
+    order += np.arange(0, c * r_rows, e_rows)[:, None]
+    words, carried = words[order.reshape(-1)], carried[order.reshape(-1)]
+    threads = r_rows >> g
+    t0 = np.arange(threads) << g
+    for cta in range(c):
+        sl = slice(cta * r_rows, (cta + 1) * r_rows)
+        w_cta, c_cta = words[sl].copy(), carried[sl].copy()
+        w = e_rows
+        while w < r_rows:
+            lo = t0 & ~(2 * w - 1)
+            nw, nc = np.empty_like(w_cta), np.empty_like(c_cta)
+            for seg in range(0, r_rows, 2 * w):
+                th = lo == seg
+                ow, oc = _merge_steps(w_cta[seg:seg + 2 * w],
+                                      c_cta[seg:seg + 2 * w], w, 2 * w,
+                                      t0[th] - seg, g)
+                nw[seg:seg + 2 * w], nc[seg:seg + 2 * w] = ow, oc
+            w_cta, c_cta = nw, nc
+            w *= 2
+        words[sl], carried[sl] = w_cta, c_cta
+    # across the cluster: each CTA's window of the two runs, then a merge
+    h_probes = threads // 2
+    hlog = rlog - g - 1
+    clog = c.bit_length() - 1
+    rounds = (rlog + clog - 1 + hlog - 1) // hlog
+    w = r_rows
+    while w < c * r_rows:
+        nw, nc = np.empty_like(words), np.empty_like(carried)
+        for cta in range(c):
+            lo = (cta * r_rows) & ~(2 * w - 1)
+            d0 = cta * r_rows - lo
+            a0, a1 = (_cut_rounds(words, lo, w, d, h_probes, rounds)
+                      for d in (d0, d0 + r_rows))
+            assert (a0, a1) == tuple(_cut(words, lo, lo + w, lo + 2 * w,
+                                          np.array([d0, d0 + r_rows])))
+            rows = np.r_[lo + a0:lo + a1,
+                         lo + w + d0 - a0:lo + w + d0 + r_rows - a1]
+            ow, oc = _merge_steps(words[rows], carried[rows], a1 - a0,
+                                  r_rows, t0, g)
+            nw[cta * r_rows:(cta + 1) * r_rows] = ow
+            nc[cta * r_rows:(cta + 1) * r_rows] = oc
+        words, carried = nw, nc
+        w *= 2
+    out_k = (words >> np.uint64(32)).astype(np.uint32)
+    out_v = (words & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return out_k, out_v, [r[carried] for r in riders]
+
+
+def _model_merge(keys, vals, riders, g, rlog, c):
+    tile = c << rlog
+    outs = [_model_merge_tile(keys[s:s + tile], vals[s:s + tile],
+                              [r[s:s + tile] for r in riders], g, rlog, c)
+            for s in range(0, len(keys), tile)]
+    return (np.concatenate([o[0] for o in outs]),
+            np.concatenate([o[1] for o in outs]),
+            [np.concatenate([o[2][k] for o in outs])
+             for k in range(len(riders))])
+
+
+def _merge_data(kind, n, rng):
+    if kind == "q1":       # 4 group keys, heavy ties on (key, payload 0)
+        return (rng.integers(0, 4, n, dtype=np.uint32),
+                rng.integers(0, 3, n, dtype=np.uint32))
+    k = _keys(kind, n, rng)
+    return k, rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+
+
+def _check_model(keys, vals, riders, geometry):
+    got_k, got_v, got_r = _model_merge(keys, vals, riders, *geometry)
+    tile_rows = (geometry[2] << geometry[1]) // T.LANES
+    wk, wv = T.sort_tiles_multi_plain(from_numpy(keys),
+                                      [from_numpy(vals)]
+                                      + [from_numpy(r) for r in riders],
+                                      tile_rows)
+    np.testing.assert_array_equal(got_k, to_numpy(wk))
+    for g_, w_ in zip([got_v, *got_r], wv):
+        np.testing.assert_array_equal(g_, to_numpy(w_))
+
+
+def test_merge_design_constants_match_the_source():
+    assert _src_constants() == (T.MERGE_G, T.MERGE_ROWS_LOG2,
+                                T.MERGE_CLUSTER)
+    assert T.MERGE_CLUSTER << T.MERGE_ROWS_LOG2 == 1 << T.MERGE_TILE_LOG2
+    # both buffers of rows (8 bytes), indices (2 bytes) and pads fit a CTA
+    rows = 1 << T.MERGE_ROWS_LOG2
+    slots = rows + (rows >> T.MERGE_G) + 2
+    assert slots * 2 * (8 + 2) + 16 <= T.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("geometry", [(2, 5, 4), (3, 6, 2), (2, 4, 8),
+                                      (4, 8, 4)])
+@pytest.mark.parametrize("kind", ["uniform", "all_equal", "presorted",
+                                  "reversed", "q1", "extremes"])
+def test_merge_model_small_geometries(kind, geometry):
+    rng = np.random.default_rng(31)
+    n = 3 * (geometry[2] << geometry[1])
+    keys, vals = _merge_data(kind, n, rng)
+    riders = [rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+              for _ in range(3)]
+    _check_model(keys, vals, riders, geometry)
+    _check_model(keys, vals, riders[:1], geometry)
+
+
+BUILT = (T.MERGE_G, T.MERGE_ROWS_LOG2, T.MERGE_CLUSTER)
+
+
+@pytest.mark.parametrize("nriders", [1, 3, 16])
+def test_merge_model_cluster_tile(cluster_tile, nriders):
+    # the built geometry on the tile whose keys tie across the half- and
+    # quarter-tile boundaries (the CTAs' shares), payloads across 2^31
+    keys, vals, v0 = cluster_tile
+    rng = np.random.default_rng(nriders)
+    riders = [vals] + [rng.integers(0, 1 << 32, len(keys), dtype=np.uint64)
+                       .astype(np.uint32) for _ in range(nriders - 1)]
+    _check_model(keys, v0, riders, BUILT)
+
+
+@pytest.mark.parametrize("kind", ["all_equal", "presorted", "reversed",
+                                  "q1"])
+def test_merge_model_built_geometry(kind):
+    rng = np.random.default_rng(32)
+    keys, vals = _merge_data(kind, 1 << 15, rng)
+    riders = [np.arange(1 << 15, dtype=np.uint32)[::-1].copy()]
+    _check_model(keys, vals, riders, BUILT)
+
+
+@pytest.mark.parametrize("span_log2", [4, 9, 13, 14])
+def test_merge_cut_rounds_match_binary_search(span_log2):
+    # csrc `coranks`: H-ary rounds find the merge-path cut exactly within
+    # the round count the kernel computes
+    rng = np.random.default_rng(span_log2)
+    w = 1 << span_log2
+    words = np.sort(rng.integers(0, 50, 2 * w).astype(np.uint64)
+                    .reshape(2, w), axis=1).reshape(-1)
+    for h_probes, rlog, g in ((256, 13, 4), (4, 5, 2), (2, 4, 2)):
+        clog = max(span_log2 + 1 - rlog, 1)
+        hlog = h_probes.bit_length() - 1
+        rounds = (rlog + clog - 1 + hlog - 1) // hlog
+        if span_log2 > rlog + clog - 1:
+            continue
+        for d in (0, 1, w // 3, w, 2 * w - 1, 2 * w):
+            assert (_cut_rounds(words, 0, w, d, h_probes, rounds)
+                    == int(_cut(words, 0, w, 2 * w, np.array([d]))[0]))
+
+
+# which design sorts which call: the wrappers' word lists, as they hand
+# them to _sort_words on the card
+DESIGNS = [
+    ("sort_tiles", 1, 0, 15, "network"),
+    ("sort_tiles_kv", 2, 0, 15, "network"),
+    ("multi, one payload", 2, 0, 15, "network"),
+    ("multi, a rider", 2, 1, 15, "merge"),
+    ("multi, three riders", 2, 3, 15, "merge"),
+    ("multi, 17 riders", 2, 17, 15, "merge"),
+    ("multi ncmp=3", 3, 0, 15, "network"),
+    ("multi ncmp=3 + a rider", 3, 1, 15, "network"),
+    ("multi, a rider, tile 2^18", 2, 1, 18, "network"),
+    ("multi, a rider, tile 2^12", 2, 1, 12, "network"),
+]
+
+
+@pytest.mark.parametrize("what,ncompared,nriders,tile_log2,want", DESIGNS)
+def test_design_calls_count_each_path(monkeypatch, what, ncompared,
+                                      nriders, tile_log2, want):
+    n = 1 << max(tile_log2, 15)
+    col = torch.zeros(n, dtype=torch.int32).view(torch.uint32)
+    words = [col] * ncompared + ([None] if nriders else [])
+    riders = [col] * nriders
+    seen = []
+    monkeypatch.setattr(T, "_launch_merge", lambda w, dst, r, o:
+                        seen.append(("merge", [d is not None for d in dst],
+                                     len(r))))
+    monkeypatch.setattr(T, "_launch_network", lambda w, dst, r, o, plan, f:
+                        seen.append(("network",
+                                     [d is not None for d in dst], len(r))))
+    designs, kernels = dict(T.DESIGN_CALLS), dict(T.KERNEL_LAUNCHES)
+    assert T.design(words, tile_log2) == want
+    out_w, out_r = T._sort_words(words, riders, tile_log2, False)
+    assert {k: T.DESIGN_CALLS[k] - designs[k] for k in designs} == {
+        "network": int(want == "network"), "merge": int(want == "merge")}
+    batches = max(1, -(-nriders // T.MAX_RIDERS))
+    assert [s[0] for s in seen] == [want] * batches
+    assert [s[2] for s in seen] == [min(T.MAX_RIDERS, nriders - i * 16)
+                                    for i in range(batches)] or not nriders
+    launched = {k: T.KERNEL_LAUNCHES[k] - kernels[k] for k in kernels}
+    if want == "merge":
+        # one cluster_sort a batch; the compared words stored once, the
+        # index word never
+        assert launched == {"bitonic_stage": 0, "cluster_sort": batches}
+        assert seen[0][1] == [True, True, False]
+        assert all(s[1] == [False, False, False] for s in seen[1:])
+    else:
+        plan = T.tile_plan(len(words), tile_log2, n)
+        assert launched == {k: v * batches
+                            for k, v in plan.launches().items()}
+    assert len(out_w) == ncompared and len(out_r) == nriders
