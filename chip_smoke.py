@@ -284,7 +284,7 @@ def main() -> int:
     from lsdradixsort_tpu_torch.kernels import transpose as TR
     from lsdradixsort_tpu_torch.ops import bigsort as B
     from lsdradixsort_tpu_torch.ops.filter import filter_kv
-    from lsdradixsort_tpu_torch.ops.sort import (_merge_sort_multi,
+    from lsdradixsort_tpu_torch.ops.sort import (_merge_chain,
                                                  merge_sort_keys,
                                                  merge_sort_with_ranks, sort,
                                                  sort64_with_ranks, sort_kv,
@@ -1722,7 +1722,7 @@ def main() -> int:
             ("merge_sort_keys (keys)", lambda: merge_sort_keys(xk),
              {"network": 1, "merge": 0}),
             ("merge_sort_multi (a rider)",
-             lambda: _merge_sort_multi(xk, [iota_u32(1 << 22, dev), xk], 15),
+             lambda: _merge_chain([xk, iota_u32(1 << 22, dev)], [xk], 15),
              {"network": 0, "merge": 1})):
         reset_counts()
         call()
@@ -2267,10 +2267,10 @@ def main() -> int:
     seg = n30 // 8
     runs = [[], []]
     for s_ in range(8):
-        k, (r,) = _merge_sort_multi(
-            big[s_ * seg:(s_ + 1) * seg],
-            [i64_to_u32(torch.arange(s_ * seg, (s_ + 1) * seg, device=dev))],
-            15)
+        k, (r,) = _merge_chain(
+            [big[s_ * seg:(s_ + 1) * seg],
+             i64_to_u32(torch.arange(s_ * seg, (s_ + 1) * seg, device=dev))],
+            (), 15)
         runs[0].append(k)
         runs[1].append(r)
         del k, r

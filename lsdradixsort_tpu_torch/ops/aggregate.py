@@ -11,8 +11,8 @@ running sum is the port's `exclusive_scan` (kernels/scan.py) plus the row.
 the card (kernels/aggregate.py), the same sequence on the CPU.
 
 engine="xla" is a stable `torch.sort` where the JAX package calls
-`lax.sort`; engine="merge" is the port's framework sort
-(`merge_sort_multi` / `merge_sort_keys`). Both give the same result.
+`lax.sort`; engine="merge" is the port's framework sort (both through
+ops/sort.py `_sort_rows`). Both give the same result.
 Outputs keep the input's length: the first num_groups rows are defined.
 """
 from __future__ import annotations
@@ -20,14 +20,13 @@ from __future__ import annotations
 import torch
 
 from lsdradixsort_tpu_torch.core import keycodec
-from lsdradixsort_tpu_torch.core.convert import (gather, iota_u32,
-                                                 stable_order, u32_to_i64,
+from lsdradixsort_tpu_torch.core.convert import (iota_u32, u32_to_i64,
                                                  wrap_u32)
 from lsdradixsort_tpu_torch.core.profiling import annotate
 from lsdradixsort_tpu_torch.kernels.aggregate import filtered_run_sums
 from lsdradixsort_tpu_torch.kernels.scan import exclusive_scan
 from lsdradixsort_tpu_torch.ops.filter import compact, range_mask
-from lsdradixsort_tpu_torch.ops.sort import merge_sort_keys, merge_sort_multi
+from lsdradixsort_tpu_torch.ops.sort import _sort_rows
 
 _SIGN = -(1 << 31)      # 0x80000000 as int32 bits
 _REDUCTIONS = ("sum", "min", "max", "count")
@@ -55,19 +54,6 @@ def starts_run(x: torch.Tensor) -> torch.Tensor:
     """True at the first row of each run of equal values of x."""
     last = differs_from_next(x)
     return torch.cat([last.new_ones(1), last[:-1]])
-
-
-def _sort_by(keys: torch.Tensor, values: torch.Tensor, engine: str,
-             tile_log2: int, by_value: bool):
-    """(keys, values) sorted by the key, then by the value when by_value
-    (or always, for the merge engine, which compares both)."""
-    if engine == "merge":
-        sk, (sv,) = merge_sort_multi(keys, [values], tile_log2=tile_log2)
-        return sk, sv
-    if engine != "xla":
-        raise ValueError(f"unknown engine {engine!r}; pick 'xla' or 'merge'")
-    perm = stable_order([keys, values] if by_value else [keys])
-    return gather(keys, perm), gather(values, perm)
 
 
 def group_by_sum(group_keys: torch.Tensor, values: torch.Tensor,
@@ -102,18 +88,17 @@ def group_by_aggregate(group_keys: torch.Tensor, values: torch.Tensor,
             values = keycodec.encode(values)
 
         if reduction == "count":
-            if engine == "merge":
-                sk = merge_sort_keys(codes, tile_log2=tile_log2)
-            else:
-                sk = gather(codes, stable_order([codes]))
+            sk = _sort_rows(codes, engine=engine, tile_log2=tile_log2)[0]
             count, uk, run_end = compact(differs_from_next(sk), sk,
                                          iota_u32(sk.shape[0], sk.device))
             ends = u32_to_i64(run_end)
             # the run before the first ends at position -1
             before = torch.nn.functional.pad(ends[:-1], (1, 0), value=-1)
             return count, keycodec.decode(uk, kdt), wrap_u32(ends - before)
-        sk, sv = _sort_by(codes, values, engine, tile_log2,
-                          by_value=reduction != "sum")
+        # a sum needs no order among a group's values: the xla engine
+        # sorts by the key alone
+        sk, (sv,), _ = _sort_rows(codes, [values], (), engine, tile_log2,
+                                  key_only=reduction == "sum")
         if reduction == "sum":
             count, uk, run_end_sums = compact(differs_from_next(sk), sk,
                                               running_sum(sv))
@@ -150,16 +135,8 @@ def filtered_group_by_sum(keys: torch.Tensor, group_keys: torch.Tensor,
                       | torch.arange(n, dtype=torch.int32, device=keys.device)
                       ).view(torch.uint32)
             del keep
-        if engine == "merge":
-            sk, (spacked, sv) = merge_sort_multi(gk, [packed, values],
-                                                 tile_log2=tile_log2)
-        elif engine == "xla":
-            perm = stable_order([gk, packed])
-            sk, spacked, sv = (gather(x, perm) for x in (gk, packed, values))
-            del perm
-        else:
-            raise ValueError(f"unknown engine {engine!r}; pick 'xla' or "
-                             "'merge'")
+        sk, (spacked,), (sv,) = _sort_rows(gk, [packed], [values], engine,
+                                           tile_log2)
         del gk, packed
         with annotate("lsd.agg.runs"):
             return filtered_run_sums(sk, spacked, sv)

@@ -4,9 +4,10 @@ config 1; the reference's flagship TestGPULSDRadixSort,
 LSDRadixSort.cu:912-1030, lifted to stable kv).
 
   1. The input arrives as S equal SEGMENTS (chunked columns). Each is
-     stably sorted on its own by the merge engine (`_merge_sort_multi`,
-     the global position base + iota the compared payload), so only one
-     segment's pass buffers are live beyond the data itself. The caller's
+     stably sorted on its own by the merge engine (ops/sort.py
+     `_merge_chain`, the global position base + iota the compared
+     payload), so only one segment's pass buffers are live beyond the
+     data itself. The caller's
      segment lists are emptied as the segments are consumed (the JAX
      package donates them): a caller that holds no other reference frees
      each segment once it is sorted.
@@ -47,7 +48,7 @@ import torch
 from lsdradixsort_tpu_torch.core.convert import i64_to_u32
 from lsdradixsort_tpu_torch.core.profiling import to_host
 from lsdradixsort_tpu_torch.kernels import merge as M
-from lsdradixsort_tpu_torch.ops.sort import _merge_sort_multi
+from lsdradixsort_tpu_torch.ops.sort import _merge_chain
 
 LANES = 128
 TRACE: list | None = None
@@ -190,15 +191,15 @@ def sort_kv_chunked(key_segs, val_segs=None, *, tile_log2: int = 15,
     for s in range(S):
         _debug(f"segment {s}/{S} sort")
         pos = i64_to_u32(torch.arange(s * L, (s + 1) * L, device=dev))
-        pay = [pos] if vsegs is None else [pos, vsegs[s]]
-        k, vs = _merge_sort_multi(segs[s], pay, tile_log2)
+        ride = [] if vsegs is None else [vsegs[s]]
+        k, vs = _merge_chain([segs[s], pos], ride, tile_log2)
         segs[s] = None
         if vsegs is not None:
             vsegs[s] = None
             runs_v.append(vs[1])
         runs_k.append(k)
         runs_r.append(vs[0])
-        del k, vs, pos, pay
+        del k, vs, pos, ride
         _phase(f"segment {s}", dev)
     streams = [runs_k, runs_r] + ([runs_v] if vsegs is not None else [])
     del runs_k, runs_r, runs_v

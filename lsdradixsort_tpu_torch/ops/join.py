@@ -14,7 +14,7 @@ which is exact: in each main sort the packed column is unique and
 ascends in concatenation order, so a stable sort by key equals the JAX
 sort by (key, packed); in each final sort the keys are unique on the rows
 that are defined. engine="merge" runs the main sort through the port's
-framework sort (`merge_sort_multi`, which compares (key, packed)).
+framework sort (ops/sort.py `_sort_rows`, which compares (key, packed)).
 engine="vmem" probes the lane-bucketed hash table
 (kernels/hash_table.py) for small build sides; when a chain overflows the
 planned depth it runs the "xla" join instead, as the JAX package's
@@ -38,7 +38,7 @@ from lsdradixsort_tpu_torch.kernels.hash_table import (build_table,
 from lsdradixsort_tpu_torch.kernels.scan import exclusive_scan
 from lsdradixsort_tpu_torch.ops.aggregate import starts_run
 from lsdradixsort_tpu_torch.ops.filter import compact
-from lsdradixsort_tpu_torch.ops.sort import merge_sort_multi
+from lsdradixsort_tpu_torch.ops.sort import _sort_rows
 
 _SIGN = -(1 << 31)          # 0x80000000 as int32 bits
 _LOW = 0x7FFFFFFF
@@ -49,22 +49,6 @@ def _tagged_positions(nb: int, np_: int, device) -> torch.Tensor:
     return torch.cat([torch.arange(nb, dtype=torch.int32, device=device),
                       torch.arange(np_, dtype=torch.int32, device=device)
                       | _SIGN]).view(torch.uint32)
-
-
-def _main_sort(keys: torch.Tensor, packed: torch.Tensor, streams,
-               engine: str, tile_log2: int):
-    """(keys, packed, *streams) sorted by (key, packed): sk, spacked and
-    the sorted streams."""
-    if engine == "merge":
-        sk, (spacked, *rest) = merge_sort_multi(keys, [packed, *streams],
-                                                tile_log2=tile_log2)
-        return sk, spacked, rest
-    if engine != "xla":
-        raise ValueError(f"unknown engine {engine!r}; pick 'xla', 'merge' "
-                         "or 'vmem'")
-    perm = stable_order([keys])
-    return (gather(keys, perm), gather(packed, perm),
-            [gather(s, perm) for s in streams])
 
 
 def _probe_order(matched_or_probe: torch.Tensor,
@@ -80,7 +64,8 @@ def _probe_order(matched_or_probe: torch.Tensor,
 def _sort_merge_match(keys, packed, val, engine, tile_log2):
     """The join's core on (key, packed, val) rows: (sk, spacked, sval,
     is_build, matched, build_val)."""
-    sk, spacked, (sval,) = _main_sort(keys, packed, [val], engine, tile_log2)
+    sk, (spacked,), (sval,) = _sort_rows(keys, [packed], [val], engine,
+                                         tile_log2, key_only=True)
     with annotate("lsd.join.match"):
         is_build = spacked.view(torch.int32) >= 0
         bk_fill, seg_bval, has_build = fill_forward_last(is_build, sk, sval)
@@ -229,8 +214,9 @@ def hash_join_multi(build_keys: torch.Tensor, build_vals: torch.Tensor,
     streams = [torch.cat([run_start, pvals[0]]), torch.cat([run_len, valid]),
                *(torch.cat([torch.zeros_like(bpos), pv]) for pv in pvals[1:])]
     del run_start, run_len, valid
-    sk, spacked, (s1, s2, *sex) = _main_sort(keys, packed, streams, engine,
-                                             tile_log2)
+    sk, (spacked,), (s1, s2, *sex) = _sort_rows(keys, [packed], streams,
+                                                engine, tile_log2,
+                                                key_only=True)
     del keys, packed, streams
     is_build = spacked.view(torch.int32) >= 0
     bk_fill, f_start, has_build = fill_forward_last(is_build, sk, s1)

@@ -4,9 +4,25 @@ family.
 The framework sort ("merge", the default) is a per-tile sort
 (kernels/tile_sort.py) into sorted runs of 2^tile_log2 rows followed by
 8-way merge passes (kernels/merge.py), each a hand-written CUDA kernel
-on a CUDA tensor and its plain PyTorch version on a CPU tensor. Inputs
-are padded with 0xFFFFFFFF sentinels to a power-of-two tile count, so
-every pass sees whole groups.
+on a CUDA tensor and its plain PyTorch version on a CPU tensor.
+
+Every sort of the port's operators goes through one seam here:
+
+  * `_merge_chain`, the merge engine's one chain: every stream padded
+    with 0xFFFFFFFF sentinels to a power-of-two tile count (so every pass
+    sees whole groups), the tile sort, the merge passes, the slice back
+    to n. The position word it makes, when asked, is an iota whose pad
+    rows sort after the real ones.
+  * `_sort_rows`, the one engine switch: rows stably sorted by a key and
+    its compared words, riders moved along, on "merge" (the chain),
+    "xla" (a stable torch.sort of the codes, where the JAX package calls
+    `jax.lax.sort`) or "auto" (merge on a CUDA tensor, torch.sort on a
+    CPU tensor). It holds the rule for payload widths and the one error
+    for an unknown engine. A caller that supplies the first compared word
+    goes through `merge_sort_multi`'s sentinel check; a sort whose
+    position word the chain makes cannot meet it.
+
+The public sorts:
 
   * `merge_sort_keys`: keys only (the reference's workload).
   * `merge_sort_with_ranks`: stable sort returning original positions.
@@ -28,10 +44,6 @@ every pass sees whole groups.
   * `sort_blocks_kv`: the (key, value) sort within each block, on the
     tile sort kernel.
 
-Strategy "xla" — `jax.lax.sort` in the JAX package — is a stable
-`torch.sort` of the codes here, as are the other places where the JAX
-package sorts with `lax.sort` by design (the sentinel-collision path of
-`merge_sort_multi`, non-32-bit payloads in `sort_kv`, `sort_with_ranks`).
 The JAX package's in-graph skew fallbacks (a pass whose tables overflow
 sorts with `lax.sort`) have nothing to guard: the port's merge has no
 capacity.
@@ -68,7 +80,6 @@ from lsdradixsort_tpu_torch.core.profiling import (COUNTS, annotate,
                                                    host_value)
 from lsdradixsort_tpu_torch.kernels.histogram import block_digit_histograms
 from lsdradixsort_tpu_torch.kernels.merge import (KWAY, MAX_STREAMS,
-                                                  merge_pass, merge_pass_kv,
                                                   merge_pass_multi)
 from lsdradixsort_tpu_torch.kernels.records import gather_records
 from lsdradixsort_tpu_torch.kernels.scan import block_scans, exclusive_scan
@@ -76,8 +87,6 @@ from lsdradixsort_tpu_torch.kernels.tile_sort import (LANES, sort_tiles,
                                                       sort_tiles_kv,
                                                       sort_tiles_multi)
 from lsdradixsort_tpu_torch.kernels.transpose import transpose_any
-
-_STRATEGIES = ("merge", "xla", "composed")
 
 
 def _padded_size(n: int, tile: int) -> int:
@@ -95,6 +104,49 @@ def _pad(x: torch.Tensor, npad: int) -> torch.Tensor:
     return torch.cat([x.view(torch.int32), fill]).view(torch.uint32)
 
 
+def _merge_chain(words, riders=(), tile_log2: int = 15, *,
+                 positions: bool = False, tiles: str = "multi"):
+    """The merge engine's chain: (n,) uint32 `words` (the key first, then
+    the compared payloads) and `riders` padded to a power-of-two tile
+    count, tile sorted, merged 8 ways until one run covers them, and cut
+    back to n rows. Returns (sorted_key, [the other words, riders]).
+
+    positions: the row positions follow the words as the last compared
+    word, the unique tiebreak that makes the sort stable. Pad rows carry
+    positions >= n, so among rows equal on every other word the real rows
+    sort first and [:n] keeps exactly them: the sentinel, as every padded
+    stream, except on the kv tile sort, which compares the position as a
+    signed int32 and gets n, n + 1, ... there.
+
+    tiles: the tile-sort wrapper, "keys" (`sort_tiles`, one word, no
+    riders), "kv" (`sort_tiles_kv`, the key and one compared word) or
+    "multi" (`sort_tiles_multi`, comparing every word); the merge passes
+    are `merge_pass_multi` comparing every word, which `merge_pass` and
+    `merge_pass_kv` are."""
+    n = words[0].shape[0]
+    tile = 1 << tile_log2
+    npad = _padded_size(n, tile)
+    if positions:
+        words = [*words, iota_u32(npad if tiles == "kv" else n,
+                                  words[0].device)]
+    ncmp = len(words)
+    with annotate("lsd.merge_sort"):
+        x, *vs = [_pad(s, npad) for s in (*words, *riders)]
+        if tiles == "keys":
+            x = sort_tiles(x, tile_rows=tile // LANES)
+        elif tiles == "kv":
+            x, v = sort_tiles_kv(x, vs[0], tile_rows=tile // LANES)
+            vs = [v]
+        else:
+            x, vs = sort_tiles_multi(x, vs, tile_rows=tile // LANES,
+                                     ncmp=ncmp)
+        run = tile
+        while run < npad:
+            x, vs = merge_pass_multi(x, vs, run, ncmp)
+            run *= KWAY
+        return x[:n], [v[:n] for v in vs]
+
+
 def merge_sort_keys(keys: torch.Tensor, tile_log2: int = 15,
                     max_buf: int | None = None, blk: int | None = None,
                     skew_fallback: bool = True, ce: str = "reshape",
@@ -102,16 +154,7 @@ def merge_sort_keys(keys: torch.Tensor, tile_log2: int = 15,
     """The framework sort of (n,) uint32 keys: tile sort + 8-way merge
     passes. Any n >= 1. Returns the sorted keys, or (sorted, True) with
     skew_fallback=False (see the module docstring)."""
-    n = keys.shape[0]
-    tile = 1 << tile_log2
-    npad = _padded_size(n, tile)
-    with annotate("lsd.merge_sort"):
-        x = sort_tiles(_pad(keys, npad), tile_rows=tile // LANES)
-        run = tile
-        while run < npad:
-            x = merge_pass(x, run)
-            run *= KWAY
-        x = x[:n]
+    x, _ = _merge_chain([keys], (), tile_log2, tiles="keys")
     return x if skew_fallback else (x, True)
 
 
@@ -122,19 +165,9 @@ def merge_sort_with_ranks(keys: torch.Tensor, tile_log2: int = 15,
 
     The row index rides through the tile sort and every merge pass and
     breaks every tie, which makes the whole pipeline stable."""
-    n = keys.shape[0]
-    tile = 1 << tile_log2
-    npad = _padded_size(n, tile)
-    # pad rows carry positions >= n: among equal sentinel keys the real
-    # rows sort first, so [:n] keeps exactly the real rows
-    with annotate("lsd.merge_sort"):
-        x, v = sort_tiles_kv(_pad(keys, npad), iota_u32(npad, keys.device),
-                             tile_rows=tile // LANES)
-        run = tile
-        while run < npad:
-            x, v = merge_pass_kv(x, v, run)
-            run *= KWAY
-        return x[:n], v[:n]
+    x, (v,) = _merge_chain([keys], (), tile_log2, positions=True,
+                           tiles="kv")
+    return x, v
 
 
 def merge_sort_multi(keys: torch.Tensor, values, tile_log2: int = 15,
@@ -154,44 +187,84 @@ def merge_sort_multi(keys: torch.Tensor, values, tile_log2: int = 15,
         collide = ((keys.view(torch.int32) == -1)
                    & (values[0].view(torch.int32) == -1)).any()
         if host_value(collide):
-            perm = stable_order([keys, values[0]])
-            return gather(keys, perm), [gather(v, perm) for v in values]
-    return _merge_sort_multi(keys, values, tile_log2)
+            sk, by, rest = _sort_rows(keys, values[:1], values[1:], "xla")
+            return sk, [*by, *rest]
+    return _merge_chain([keys, *values[:1]], values[1:], tile_log2)
 
 
-def _merge_sort_multi(keys: torch.Tensor, values, tile_log2: int):
-    """merge_sort_multi without the sentinel-collision check: for callers
-    whose values[0] can never be 0xFFFFFFFF."""
-    n = keys.shape[0]
-    tile = 1 << tile_log2
-    npad = _padded_size(n, tile)
-    with annotate("lsd.merge_sort"):
-        x, vs = sort_tiles_multi(_pad(keys, npad),
-                                 [_pad(v, npad) for v in values],
-                                 tile_rows=tile // LANES)
-        run = tile
-        while run < npad:
-            x, vs = merge_pass_multi(x, vs, run)
-            run *= KWAY
-        return x[:n], [v[:n] for v in vs]
+def _engine(engine: str, device: torch.device) -> str:
+    """The engine a sort runs on: "auto" is the merge engine for CUDA
+    tensors and a stable torch.sort ("xla") for CPU tensors, where the
+    kernels' plain versions would dominate."""
+    if engine == "auto":
+        return "merge" if device.type == "cuda" else "xla"
+    if engine not in ("merge", "xla"):
+        raise ValueError(f"unknown engine {engine!r}: the sort engines are "
+                         f"'merge', 'xla' and 'auto'")
+    return engine
+
+
+def _sort_rows(key: torch.Tensor, by=(), riders=(), engine: str = "merge",
+               tile_log2: int = 15, *, positions: bool = False,
+               key_only: bool = False):
+    """The operators' one engine switch: the rows (key, *by, *riders)
+    stably sorted by (key, *by), returned as (key, [by...], [riders...]),
+    with the sorted row positions (uint32) after by when `positions`.
+
+    key and by are (n,) uint32 words; riders (n,) tensors of any dtype,
+    returned in their dtype. "merge" moves 32-bit riders as their uint32
+    bits (a view, never a conversion); a rider of another width sends the
+    sort to "xla". On "merge", a sort with `positions` or without by has
+    the chain make the position word, its unique tiebreak, compared last;
+    riders past what one pass moves follow it by a gather. Otherwise by
+    is one word, the caller's unique tiebreak, and the sort goes through
+    `merge_sort_multi` and its sentinel check. "xla" compares key and by
+    with `stable_order` (key alone when `key_only`: the caller's by word
+    ascends in row order, so stability gives its order, or the caller
+    needs no order among equal keys) and gathers the rest; keys alone
+    take one torch.sort of their int64 values."""
+    engine = _engine(engine, key.device)
+    by, riders = list(by), list(riders)
+    if engine == "merge" and any(r.element_size() != 4 for r in riders):
+        engine = "xla"
+    if engine == "xla":
+        if not (by or riders or positions):
+            return i64_to_u32(torch.sort(u32_to_i64(key)).values), [], []
+        order = stable_order([key] if key_only else [key, *by])
+        sby = [gather(w, order) for w in by]
+        if positions:
+            sby.append(order.to(torch.int32).view(torch.uint32))
+        return gather(key, order), sby, [gather(r, order) for r in riders]
+    if not (by or riders or positions):
+        return merge_sort_keys(key, tile_log2=tile_log2), [], []
+    u32 = [r.contiguous().view(torch.uint32) for r in riders]
+    if positions or not by:
+        nw = len(by) + 1                    # the position word is outs[nw-1]
+        ride = MAX_STREAMS - 1 - nw
+        sk, outs = _merge_chain([key, *by], u32[:ride], tile_log2,
+                                positions=True)
+        if len(riders) > ride:
+            order = u32_to_i64(outs[nw - 1])
+            outs += [gather(r, order) for r in u32[ride:]]
+    else:
+        nw = len(by)
+        sk, outs = merge_sort_multi(key, [*by, *u32], tile_log2=tile_log2)
+    return sk, outs[:len(by) + positions], [
+        o.view(r.dtype) for o, r in zip(outs[nw:], riders)]
 
 
 def sort(keys: torch.Tensor, strategy: str = "merge", r: int = 8,
          block_size: int = 1 << 13, descending: bool = False
          ) -> torch.Tensor:
     """Sort u32/i32/f32 keys (TestGPULSDRadixSort path, cu:912-1030).
-    Float keys sort in IEEE total order (core/keycodec.py)."""
+    Float keys sort in IEEE total order (core/keycodec.py). strategy: a
+    sort engine or "composed"."""
     with annotate("lsd.sort"):
         code = keycodec.encode(keys, descending)
-        if strategy == "merge":
-            out = merge_sort_keys(code)
-        elif strategy == "xla":
-            out = i64_to_u32(torch.sort(u32_to_i64(code)).values)
-        elif strategy == "composed":
+        if strategy == "composed":
             out = _composed_lsd_sort(code, r, block_size)
         else:
-            raise ValueError(
-                f"unknown strategy {strategy!r}; pick from {_STRATEGIES}")
+            out = _sort_rows(code, engine=strategy)[0]
         return keycodec.decode(out, keys.dtype, descending)
 
 
@@ -210,25 +283,10 @@ def sort_kv(keys: torch.Tensor, values, strategy: str = "merge", r: int = 8,
     with annotate("lsd.sort_kv"):
         code = keycodec.encode(keys, descending)
         flat, spec = pytree.tree_flatten(values)
-        if strategy == "merge" and any(v.element_size() != 4 for v in flat):
-            strategy = "xla"
-        if strategy == "merge":
-            n = keys.shape[0]
-            u32 = [v.contiguous().view(torch.uint32) for v in flat]
-            # values[0] is the row index (< 2^31), never the 0xFFFFFFFF of
-            # a pad row, so the collision check and its host sync are
-            # skipped
-            sk, outs = _merge_sort_multi(
-                code, [iota_u32(n, keys.device), *u32], tile_log2)
-            back = [o.view(v.dtype) for o, v in zip(outs[1:], flat)]
-        elif strategy == "xla":
-            perm = stable_order([code])
-            sk, back = gather(code, perm), [gather(v, perm) for v in flat]
-        elif strategy == "composed":
+        if strategy == "composed":
             sk, back = _composed_lsd_sort_kv(code, flat, r, block_size)
         else:
-            raise ValueError(
-                f"unknown strategy {strategy!r}; pick from {_STRATEGIES}")
+            sk, _, back = _sort_rows(code, (), flat, strategy, tile_log2)
         return (keycodec.decode(sk, keys.dtype, descending),
                 pytree.tree_unflatten(back, spec))
 
@@ -237,9 +295,8 @@ def sort_with_ranks(keys: torch.Tensor, descending: bool = False):
     """Sort keys, returning (sorted_keys, original_positions as uint32):
     the columnar primitive — use the positions to gather other columns."""
     code = keycodec.encode(keys, descending)
-    perm = stable_order([code])
-    sk = keycodec.decode(gather(code, perm), keys.dtype, descending)
-    return sk, perm.to(torch.int32).view(torch.uint32)
+    sk, (perm,), _ = _sort_rows(code, engine="xla", positions=True)
+    return keycodec.decode(sk, keys.dtype, descending), perm
 
 
 def argsort(keys: torch.Tensor, descending: bool = False) -> torch.Tensor:
@@ -271,27 +328,12 @@ def sort_lex(key_cols, descending=False, strategy: str = "merge",
         descending = (descending,) * k
     if len(descending) != k:
         raise ValueError("descending must be a bool or one per column")
-    if strategy not in ("merge", "xla"):
-        raise ValueError(f"strategy {strategy!r}: pick 'merge' or 'xla'")
     codes = [keycodec.encode(c, d) for c, d in zip(cols, descending)]
-    n = cols[0].shape[0]
-    dev = cols[0].device
-    perm = iota_u32(n, dev)
+    perm = iota_u32(cols[0].shape[0], cols[0].device)
     for i in reversed(range(k)):
         others = [codes[j] for j in range(k) if j != i]
-        if strategy == "merge":
-            ride = others[:MAX_STREAMS - 3]
-            key_s, outs = _merge_sort_multi(
-                codes[i], [iota_u32(n, dev), perm, *ride], tile_log2)
-            perm = outs[1]
-            rest = outs[2:]
-            if len(others) > len(ride):
-                order = u32_to_i64(outs[0])
-                rest += [gather(c, order) for c in others[len(ride):]]
-        else:
-            order = stable_order([codes[i]])
-            key_s, perm = gather(codes[i], order), gather(perm, order)
-            rest = [gather(c, order) for c in others]
+        key_s, _, (perm, *rest) = _sort_rows(codes[i], (), [perm, *others],
+                                             strategy, tile_log2)
         it = iter(rest)
         codes = [key_s if j == i else next(it) for j in range(k)]
     decoded = tuple(keycodec.decode(c, col.dtype, d)
@@ -340,46 +382,19 @@ def sort64_with_ranks(key_hi: torch.Tensor, key_lo: torch.Tensor,
     plane and then by the high plane (the reference's digit-group loop
     with r = 32). "xla" is the same two passes as stable torch.sorts."""
     chi, clo = keycodec.encode64(key_hi, key_lo, dtype, descending)
-    n = key_hi.shape[0]
-    dev = key_hi.device
     if strategy == "merge":
-        hi_o, lo_o, perm = _merge1_sort64(chi, clo, tile_log2=tile_log2)
-    elif strategy == "merge2":
-        # the sorted position tiebreak of pass 1 is the pass-1 permutation
-        lo_s, (perm1, hi_s) = _merge_sort_multi(clo, [iota_u32(n, dev), chi],
-                                                tile_log2)
-        hi_o, (_, lo_o, perm) = _merge_sort_multi(
-            hi_s, [iota_u32(n, dev), lo_s, perm1], tile_log2)
-    elif strategy == "xla":
-        order = stable_order([clo])
-        lo_s, perm1, hi_s = gather(clo, order), order, gather(chi, order)
-        order = stable_order([hi_s])
-        hi_o, lo_o = gather(hi_s, order), gather(lo_s, order)
-        perm = i64_to_u32(perm1[order])
+        hi_o, (lo_o, perm), _ = _sort_rows(chi, [clo], (), "merge",
+                                           tile_log2, positions=True)
     else:
-        raise ValueError(f"strategy {strategy!r}: pick 'merge', 'merge2' "
-                         f"or 'xla'")
+        # the first pass's sorted positions ride the second as its
+        # permutation
+        engine = "merge" if strategy == "merge2" else strategy
+        lo_s, (perm1,), (hi_s,) = _sort_rows(clo, (), [chi], engine,
+                                             tile_log2, positions=True)
+        hi_o, _, (lo_o, perm) = _sort_rows(hi_s, (), [lo_s, perm1], engine,
+                                           tile_log2)
     hi_o, lo_o = keycodec.decode64(hi_o, lo_o, dtype, descending)
     return hi_o, lo_o, perm
-
-
-def _merge1_sort64(chi: torch.Tensor, clo: torch.Tensor, tile_log2: int = 15):
-    """Single-chain stable 64-bit sort: one tile sort and merge passes
-    whose compares order by (hi, lo, position) — ncmp = 3 in both
-    kernels. Returns (hi, lo, positions). Pad rows are (0xFFFFFFFF,
-    0xFFFFFFFF, >= n) and positions are unique, so they sort last and the
-    order is total and stable by construction."""
-    n = chi.shape[0]
-    tile = 1 << tile_log2
-    npad = _padded_size(n, tile)
-    hi, (lo, pos) = sort_tiles_multi(
-        _pad(chi, npad), [_pad(clo, npad), iota_u32(npad, chi.device)],
-        tile_rows=tile // LANES, ncmp=3)
-    run = tile
-    while run < npad:
-        hi, (lo, pos) = merge_pass_multi(hi, [lo, pos], run, ncmp=3)
-        run *= KWAY
-    return hi[:n], lo[:n], pos[:n]
 
 
 def sort_blocks_kv(keys: torch.Tensor, values: torch.Tensor,

@@ -17,14 +17,13 @@ from __future__ import annotations
 import torch
 
 from lsdradixsort_tpu_torch.core import keycodec
-from lsdradixsort_tpu_torch.core.convert import (gather, iota_u32,
-                                                 stable_order, u32_to_i64,
-                                                 wrap_u32)
+from lsdradixsort_tpu_torch.core.convert import (iota_u32, stable_order,
+                                                 u32_to_i64, wrap_u32)
 from lsdradixsort_tpu_torch.core.profiling import host_value
 from lsdradixsort_tpu_torch.kernels.histogram import digit_histogram
 from lsdradixsort_tpu_torch.ops.aggregate import starts_run
 from lsdradixsort_tpu_torch.ops.filter import compact
-from lsdradixsort_tpu_torch.ops.sort import merge_sort_keys, sort_with_ranks
+from lsdradixsort_tpu_torch.ops.sort import _sort_rows, sort_with_ranks
 
 _UNIQUE_MERGE_ROWS = 1 << 17   # below it, unique sorts with torch.sort
 
@@ -68,10 +67,8 @@ def unique(keys: torch.Tensor):
     counts); the first n_unique rows are defined. keys u32/i32/f32."""
     n = keys.shape[0]
     codes = keycodec.encode(keys)
-    if n >= _UNIQUE_MERGE_ROWS:
-        sk = merge_sort_keys(codes)
-    else:
-        sk = gather(codes, stable_order([codes]))
+    engine = "merge" if n >= _UNIQUE_MERGE_ROWS else "xla"
+    sk = _sort_rows(codes, engine=engine)[0]
     cnt, uk, starts = compact(starts_run(sk), sk, iota_u32(n, sk.device))
     start = u32_to_i64(starts)
     # each run ends where the next starts; the last defined run at n

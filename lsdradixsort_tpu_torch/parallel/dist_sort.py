@@ -17,11 +17,11 @@ port of lsdradixsort_tpu/parallel/dist_sort.py, step for step:
 
 Each rank passes its shard and gets its shard back: exactly n/D rows for
 any key distribution. Keys are u32/i32/f32 through the order-preserving
-codecs (core/keycodec.py). The local sorts run the framework merge engine
-(ops/sort.py `merge_sort_multi` and `merge_sort_keys`: the tile sort and
-merge pass kernels on a CUDA tensor) or, with engine "xla", a stable
-torch.sort, which JAX's "xla" (`lax.sort` on a unique tiebreak) equals;
-"auto" picks by the tensor's device, as JAX picks by backend.
+codecs (core/keycodec.py). The local sorts go through the port's sort
+seam (ops/sort.py `_sort_rows`): the framework merge engine (the tile
+sort and merge pass kernels on a CUDA tensor) or, with engine "xla", a
+stable torch.sort, which JAX's "xla" (`lax.sort` on a unique tiebreak)
+equals; "auto" picks by the tensor's device, as JAX picks by backend.
 
 torch has no uint32 searchsorted, and the collectives refuse uint32: the
 searches run on the bias-flipped int32 view (x ^ 0x80000000 keeps the
@@ -36,9 +36,8 @@ import torch
 import torch.distributed as dist
 
 from lsdradixsort_tpu_torch.core import keycodec
-from lsdradixsort_tpu_torch.core.convert import gather, stable_order
 from lsdradixsort_tpu_torch.core.profiling import to_host
-from lsdradixsort_tpu_torch.ops.sort import merge_sort_keys, merge_sort_multi
+from lsdradixsort_tpu_torch.ops.sort import _sort_rows
 from lsdradixsort_tpu_torch.parallel.mesh import (DATA_AXIS, Mesh,
                                                   _check_member, all_gather,
                                                   psum)
@@ -46,46 +45,16 @@ from lsdradixsort_tpu_torch.parallel.mesh import (DATA_AXIS, Mesh,
 _SIGN = -(1 << 31)      # 0x80000000 as int32 bits
 
 
-def _resolve_engine(engine: str, device: torch.device) -> str:
-    """Local-sort engine: "auto" is the framework merge engine for CUDA
-    tensors and a stable torch.sort ("xla") for CPU tensors, where the
-    kernels' plain versions would dominate."""
-    if engine == "auto":
-        return "merge" if device.type == "cuda" else "xla"
-    if engine not in ("merge", "xla"):
-        raise ValueError(f"engine {engine!r}: pick 'auto', 'merge' or 'xla'")
-    return engine
-
-
-def _local_sort_stable(keys, src, vals, engine: str, tile_log2: int = 15):
-    """Stable per-rank sort by (key, src) with payload streams riding. src
-    is a unique, position-consistent tiebreak (the global source rank),
-    the merge engine's val0 contract. 32-bit payloads ride the merge
-    engine as their uint32 bits (a view); others take the torch sort."""
-    vals = tuple(vals)
-    if engine == "merge" and all(v.element_size() == 4 for v in vals):
-        sk, outs = merge_sort_multi(
-            keys, [src, *(v.contiguous().view(torch.uint32) for v in vals)],
-            tile_log2=tile_log2)
-        back = [o.view(v.dtype) for o, v in zip(outs[1:], vals)]
-        return (sk, outs[0], *back)
-    perm = stable_order([keys, src])
-    return (gather(keys, perm), gather(src, perm),
-            *(gather(v, perm) for v in vals))
-
-
-def _local_sort_keys(keys, engine: str, tile_log2: int = 15):
-    """Per-rank keys-only sort."""
-    if engine == "merge":
-        return merge_sort_keys(keys, tile_log2=tile_log2)
-    return _unbias(torch.sort(_bias(keys)).values)
-
-
-def _sort_by_key(keys, vals):
-    """(keys, *vals) by key alone; JAX's unstable `lax.sort` here leaves
-    the order of equal keys open, and the stable order is one of them."""
-    perm = stable_order([keys])
-    return (gather(keys, perm), *(gather(v, perm) for v in vals))
+def _local_sort(keys, src, vals, engine: str, tile_log2: int):
+    """Per-rank sort as (keys, [src], [vals...]): stable by (key, src)
+    when src is given (a unique, position-consistent tiebreak: the global
+    source rank), else by the key alone; payloads ride. Without src, a
+    sort with payloads is a torch sort: JAX's unstable `lax.sort` there
+    leaves the order of equal keys open, and the stable order is one of
+    them."""
+    if src is not None:
+        return _sort_rows(keys, [src], vals, engine, tile_log2)
+    return _sort_rows(keys, (), vals, "xla" if vals else engine, tile_log2)
 
 
 def _bias(x: torch.Tensor) -> torch.Tensor:
@@ -204,33 +173,23 @@ def _exchange(arrays, input_offsets, send_sizes, mesh: Mesh, out_len: int):
 def _dist_sort_shard(keys, values, ranks, mesh: Mesh, n_total: int,
                      stable: bool, src=None, keep_src: bool = False,
                      engine: str = "auto", tile_log2: int = 15):
-    engine = _resolve_engine(engine, keys.device)
     n_local = keys.shape[0]
-    if stable:
-        if src is None:
-            src = _positions(mesh.rank * n_local, n_local, keys.device)
-        sk, ssrc, *svals = _local_sort_stable(keys, src, values, engine,
-                                              tile_log2)
-    elif values:
-        sk, *svals = _sort_by_key(keys, values)
-    else:
-        sk, svals = _local_sort_keys(keys, engine, tile_log2), []
+    if stable and src is None:
+        src = _positions(mesh.rank * n_local, n_local, keys.device)
+    sk, ssrc, svals = _local_sort(keys, src if stable else None, values,
+                                  engine, tile_log2)
     skb = _bias(sk)
     spk = _splitter_keys(skb, ranks, mesh)
     input_offsets, send_sizes = _local_send_plan(skb, spk, ranks, mesh)
     del skb
-    payload = (sk,) + ((ssrc,) if stable else ()) + tuple(svals)
+    payload = (sk, *ssrc, *svals)
     received = _exchange(payload, input_offsets, send_sizes, mesh,
                          out_len=n_total // mesh.size)
     del payload, sk, svals
-    if stable:
-        rk, rsrc, *rvals = received
-        out = _local_sort_stable(rk, rsrc, rvals, engine, tile_log2)
-        return out if keep_src else (out[0],) + tuple(out[2:])
-    rk, *rvals = received
-    if rvals:
-        return _sort_by_key(rk, rvals)
-    return (_local_sort_keys(rk, engine, tile_log2),)
+    rk, *rest = received
+    sk, ssrc, svals = _local_sort(rk, rest[0] if stable else None,
+                                  rest[len(ssrc):], engine, tile_log2)
+    return (sk, *ssrc, *svals) if keep_src else (sk, *svals)
 
 
 def dist_sort(keys: torch.Tensor, mesh: Mesh, axis: str = DATA_AXIS,

@@ -8,12 +8,14 @@ versions; the JAX package runs on the CPU, its kernels in interpret mode.
 Outputs are integers and must agree bit for bit."""
 import dataclasses
 import importlib
+import re
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import lsdradixsort_tpu as JP
 import lsdradixsort_tpu_torch as TP
@@ -21,6 +23,7 @@ from lsdradixsort_tpu.core import datagen as JD
 from lsdradixsort_tpu.core import timing as JT
 from lsdradixsort_tpu.kernels import histogram as JH
 from lsdradixsort_tpu.kernels import scan as JS
+from lsdradixsort_tpu_torch import parallel as PAR
 from lsdradixsort_tpu_torch.core import datagen, profiling, timing
 from lsdradixsort_tpu_torch.core.convert import from_numpy, to_numpy
 from lsdradixsort_tpu_torch.kernels import compaction as CP
@@ -284,3 +287,100 @@ def test_sort_kv_pytree_payloads_match_jax(strategy, as_dict):
         assert set(gv) == {"a", "b"} and isinstance(gv["b"], tuple)
     else:
         assert isinstance(gv[1][1], list)
+
+
+# --- the one sort seam of ops/sort.py ---------------------------------------
+
+SEAM_N = 3000       # not a multiple of the tile: every stream is padded
+SEAM_TILE = 8       # 256-row tiles: 16 tiles a sort, two merge passes
+
+
+def _dist_sort_kv_world_of_one(keys, vals, engine):
+    """dist_sort_kv on a gloo world of one in this process, torn down."""
+    mesh = PAR.make_mesh(backend="gloo", device="cpu")
+    try:
+        return PAR.dist_sort_kv(keys, vals, mesh, engine=engine,
+                               tile_log2=SEAM_TILE)
+    finally:
+        dist.destroy_process_group()
+
+
+def _seam_ops():
+    """Each operator that sorts through the seam, as fn(engine) on tiny
+    CPU columns (the keys tie; records, join and 64-bit keys as their
+    callers shape them)."""
+    rng = np.random.default_rng(80)
+    n, t = SEAM_N, SEAM_TILE
+    k = from_numpy(_u32(n, 81, 400))
+    v = from_numpy(_u32(n, 82))
+    f = from_numpy(rng.standard_normal(n).astype(np.float32))
+    rec = torch.from_numpy(rng.integers(0, 256, (n, 16), dtype=np.uint8))
+    bk = from_numpy(np.arange(0, 800, 2, dtype=np.uint32))
+    return {
+        "sort": lambda e: TP.sort(k, strategy=e),
+        "sort_kv": lambda e: TP.sort_kv(k, (v, f), strategy=e, tile_log2=t),
+        "sort_lex": lambda e: TP.sort_lex([k, v, f], strategy=e,
+                                          tile_log2=t),
+        "sort_records": lambda e: TP.sort_records(rec, 10, strategy=e,
+                                                  tile_log2=t),
+        "sort64_with_ranks": lambda e: TP.sort64_with_ranks(
+            k, v, strategy=e, tile_log2=t),
+        "hash_join": lambda e: TP.hash_join(bk, bk, k, v, engine=e,
+                                            tile_log2=t),
+        "filtered_group_by_sum": lambda e: TP.filtered_group_by_sum(
+            v, k, v, 0, 1 << 31, engine=e, tile_log2=t),
+        "group_by.count": lambda e: TP.group_by_aggregate(
+            k, v, "count", engine=e, tile_log2=t),
+        "group_by.sum": lambda e: TP.group_by_aggregate(
+            k, v, "sum", engine=e, tile_log2=t),
+        "group_by.min": lambda e: TP.group_by_aggregate(
+            k, f, "min", engine=e, tile_log2=t),
+        "unique": lambda e: TP.unique(k),
+        "dist_sort_kv": lambda e: _dist_sort_kv_world_of_one(k, f, e),
+    }
+
+
+# (operator, engine): the plain calls of sort_tiles, sort_tiles_kv,
+# sort_tiles_multi and merge_pass_multi, and the host syncs and int64
+# bytes one call adds, as the operators made them before they shared the
+# seam; `unique` picks its engine by size
+SEAM_COUNTS = {
+    ("sort", "merge"): (1, 0, 0, 0, 0, 262144),
+    ("sort_kv", "merge"): (0, 0, 1, 2, 0, 196608),
+    ("sort_lex", "merge"): (0, 0, 3, 6, 0, 589824),
+    ("sort_records", "merge"): (0, 0, 3, 6, 0, 589824),
+    ("sort64_with_ranks", "merge"): (0, 0, 1, 2, 0, 294912),
+    ("sort64_with_ranks", "merge2"): (0, 0, 2, 4, 0, 393216),
+    ("hash_join", "merge"): (0, 0, 1, 2, 1, 196608),
+    ("hash_join", "xla"): (0, 0, 0, 0, 0, 27200),
+    ("filtered_group_by_sum", "merge"): (0, 0, 1, 2, 1, 316608),
+    ("group_by.count", "merge"): (1, 0, 0, 2, 0, 122304),
+    ("group_by.count", "xla"): (0, 0, 0, 0, 0, 48000),
+    ("group_by.sum", "merge"): (0, 0, 1, 2, 0, 292608),
+    ("group_by.sum", "xla"): (0, 0, 0, 0, 0, 120000),
+    ("group_by.min", "merge"): (0, 0, 1, 2, 0, 196608),
+    ("group_by.min", "xla"): (0, 0, 0, 0, 0, 48000),
+    ("unique", None): (0, 0, 0, 0, 0, 48008),
+    ("dist_sort_kv", "auto"): (0, 0, 0, 0, 1, 96000),
+    ("dist_sort_kv", "merge"): (0, 0, 2, 4, 3, 393216),
+}
+
+
+@pytest.mark.parametrize("op,engine", list(SEAM_COUNTS))
+def test_operators_keep_their_paths_through_the_seam(op, engine):
+    call = _seam_ops()[op]
+    before = (dict(TS.PLAIN_CALLS), dict(M.PLAIN_CALLS),
+              dict(profiling.COUNTS))
+    call(engine)
+    got = (*(TS.PLAIN_CALLS[w] - before[0][w]
+             for w in ("sort_tiles", "sort_tiles_kv", "sort_tiles_multi")),
+           M.PLAIN_CALLS["merge_pass_multi"] - before[1]["merge_pass_multi"],
+           *(profiling.COUNTS[c] - before[2][c]
+             for c in ("host_syncs", "int64_bytes")))
+    assert got == SEAM_COUNTS[op, engine]
+    if engine is not None:
+        # one text for an unknown engine, whichever operator meets it
+        with pytest.raises(ValueError, match=re.escape(
+                "unknown engine 'bogus': the sort engines are 'merge', "
+                "'xla' and 'auto'")):
+            call("bogus")

@@ -1,5 +1,5 @@
 """The port's 64-bit sort (lsdradixsort_tpu_torch/ops/sort.py
-`sort64_with_ranks` and its single chain `_merge1_sort64`) and the ncmp = 3
+`sort64_with_ranks` and its single chain, strategy "merge") and the ncmp = 3
 mode of its two kernels (kernels/tile_sort.py `sort_tiles_multi`,
 kernels/merge.py `merge_pass_multi`), on CPU tensors — the kernels' plain
 versions — against the JAX package on the same numpy input.
@@ -88,8 +88,8 @@ def test_merge1_sort64_counts_ncmp3_passes():
     # on the plain versions for CPU tensors
     hi, lo = _planes(72, 1 << 13, "uint64")
     before = (dict(TT.PLAIN_CALLS), dict(TM.PLAIN_CALLS))
-    h, lw, pos = T._merge1_sort64(from_numpy(hi), from_numpy(lo),
-                                  tile_log2=TILE_LOG)
+    h, lw, pos = T.sort64_with_ranks(from_numpy(hi), from_numpy(lo),
+                                     strategy="merge", tile_log2=TILE_LOG)
     assert TT.PLAIN_CALLS["sort_tiles_multi"] == \
         before[0]["sort_tiles_multi"] + 1
     assert TM.PLAIN_CALLS["merge_pass_multi"] == \
