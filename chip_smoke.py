@@ -51,7 +51,7 @@ Phases, in order; any failure exits non-zero and prints no result:
    The merge-path partition (merge_path_splits) and merge against their
    plain versions on all-equal, 97-distinct and uniform keys, with 1, 2,
    3 and 8 streams at every ncmp they allow, runs of 2^15, 1000 and 3
-   rows and a last group of 5 runs, and a tail of 0xFFFFFFFF padding;
+   rows and a last group of 5 runs, and a tail of all-ones rows;
    then the sampled partition's own edges: one key on 90 % of the rows,
    all-equal keys (a tie wider than a span), 3 distinct keys and globally
    presorted keys (boundaries on sample rows) at runs of 2^15 and 2^17
@@ -63,7 +63,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    streams seen through views 1-3 words off 16-byte alignment (window
    starts at every residue mod 4, each compared stream at its own), tile
    counts below and no multiple of the persistent grid, and ranges of 8
-   runs with 8 streams at ncmp 2 and 3.
+   runs with 8 streams at ncmp 2 and 3. A short last tile and a short
+   last run (the merge chain sorts n rows, nothing padded): every
+   tile-sort design (keys, also at tiles of 2^11; kv by the position and
+   by values across 2^31; two compared words; the merge design with 1 and
+   17 riders, also on views 1-3 words off alignment; ncmp = 3 with and
+   without a rider; tiles of 2^18 rows, whose short last tile sorts
+   through a tile of scratch) at n = 2^15 k + r for k of 0, 1, 37 and r
+   of 1, 2^13 +- 1, 2^14 + 3, 2^15 - 1, on tied, uniform, boundary-tied,
+   all-equal and all-ones rows; the partition and merge on passes whose
+   last group holds 1-8 runs, its last run of one row or a third of a
+   run; the chain at n = 10^8, 1.8 * 10^8 and 2^27 + 1 (keys, kv, and
+   key + payload 0 + a rider) against a stable torch.sort.
    Then the scans at 2^22, 100000 and 131712 words of full-range u32
    (wraparound) and of i32, block_prefix_sums at blocks 128, 512 and
    2^13; exclusive_scan at n = 0, 1, a scan tile and a CTA's words, each
@@ -175,8 +186,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    dist_sort_kv exactly 2 cluster_sort and 8 merge passes (two local
    merge sorts of 2^27 rows), dist_join exactly one fill-forward;
    sort_records of 10-byte keys exactly 3 cluster_sort (all 3 on the merge
-   design), 12 merge passes (three sort_lex passes of 2^27 padded rows)
-   and one gather. Then one
+   design), 12 merge passes (three sort_lex passes of 10^8 rows, the
+   last run of each pass short) and one gather. Then one
    composed sort at each r = 1, 2, 4, 8 launches block_prefix_sums and
    transpose_tiled 32 / r times each, with no plain call.
 5. Each kernel against its plain version at the main paths' shapes, bit
@@ -189,8 +200,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    the kernel's previous output, its partition (merge_path_splits) timed
    on its own beside it (the pass's time includes it) and traced, each
    of its launches' device time apart, the pass traced too for the tile
-   merge's (merge_tiles) own device time beside its bound, and the same
-   at ncmp = 3 (hi, lo, position); merge_pass_runs on each range of the
+   merge's (merge_tiles) own device time beside its bound, the same
+   chain of key, position and a payload at 10^8 rows (a short last tile,
+   four passes with a short last run) beside 2^27, and the same at
+   ncmp = 3 (hi, lo, position); merge_pass_runs on each range of the
    2^30 chunked pass (2 streams, untrimmed runs), its partition and its
    tile merge timed or traced on their own beside it, beside a stable
    torch.sort of the 2^30 int64 (key, position) words; the histogram of
@@ -257,6 +270,7 @@ def main() -> int:
     from lsdradixsort_tpu_torch.core import keycodec, roofline
     from lsdradixsort_tpu_torch.core.convert import (i64_to_u32, iota_u32,
                                                      order_key, row_order,
+                                                     sort_segments,
                                                      take_rows, u32_to_i64)
     from lsdradixsort_tpu_torch.core.datagen import (random_keys,
                                                      random_keys_bounded)
@@ -284,7 +298,7 @@ def main() -> int:
     from lsdradixsort_tpu_torch.kernels import transpose as TR
     from lsdradixsort_tpu_torch.ops import bigsort as B
     from lsdradixsort_tpu_torch.ops.filter import filter_kv
-    from lsdradixsort_tpu_torch.ops.sort import (_merge_chain,
+    from lsdradixsort_tpu_torch.ops.sort import (_merge_chain, _sort_rows,
                                                  merge_sort_keys,
                                                  merge_sort_with_ranks, sort,
                                                  sort64_with_ranks, sort_kv,
@@ -575,8 +589,8 @@ def main() -> int:
     # the merge-path merge's edges: all-equal keys, few uniques and
     # uniform keys; 1, 2, 3 and 8 streams at every ncmp they allow; runs of
     # a tile multiple, of 1000 rows (below a tile) and of 3 rows, with a
-    # last group of 5 runs; a tail of 0xFFFFFFFF padding (the rows
-    # merge_sort pads with). The CUDA partition against its plain version
+    # last group of 5 runs; a tail of all-ones rows (the largest words,
+    # ties across every run). The CUDA partition against its plain version
     # on each, then the pass.
     def merge_case(label, streams, run, ncmp):
         perm = row_order(streams[:ncmp], run)
@@ -690,6 +704,159 @@ def main() -> int:
     print(f"phase 2: merge-path partition and merge bit exact on the edge "
           f"cases (max_abs_err {max_err['merge_path_splits']}, "
           f"{max_err['merge_pass_multi']})")
+    # a short last tile and a short last run (the chain sorts n rows, no
+    # padding): every tile-sort design at n = 2^15 k + r, k of 0, 1 and 37
+    # whole tiles, r of 1, 2^13 +- 1, 2^14 + 3 and 2^15 - 1 rows (a CTA of
+    # the merge design's 4 and of the networks' 2 partly or wholly past
+    # n), on ties, uniform, boundary-tied, all-equal and all-ones rows
+    # (the missing rows' own words): keys alone (also at tiles of 2^11:
+    # several a CTA), kv by the position and by vals across 2^31, two
+    # compared words, the merge design with 1 and 17 riders, ncmp = 3 with
+    # and without a rider; tiles of 2^18 rows (device-memory stages: the
+    # short last tile through a tile of scratch); the merge design on
+    # views 1-3 words off alignment
+    ones = torch.full((n2,), -1, dtype=torch.int32, device=dev).view(
+        torch.uint32)
+    rfams = {f: x for f, x in families(n2, 61).items()
+             if f in ("uniform", "distinct97", "cluster_boundary",
+                      "all_equal")}
+    rfams["all_ones"] = ones
+    rid = [random_keys(n2, 62 + i, dev) for i in range(17)]
+    v0r = random_keys_bounded(n2, 0, 3, 63, dev)
+    kvv = random_keys(n2, 64, dev).view(torch.int32).clone()
+    kvv[::5] = 0x7FFFFFFF          # the missing rows' value, flipped
+    kvv = kvv.view(torch.uint32)
+    small_rows = (1 << 11) // TS.LANES
+    short_tiles = 0
+    for k in (0, 1, 37):
+        for r in (1, (1 << 13) - 1, (1 << 13) + 1, (1 << 14) + 3,
+                  (1 << 15) - 1):
+            m = (k << 15) + r
+            for fam, xf in rfams.items():
+                x_, io, p_ = xf[:m], iota[:m], pay[:m]
+                v0_ = (ones if fam == "all_ones" else v0r)[:m]
+                lab = f"{fam} n=2^15*{k}+{r}"
+                compare("sort_tiles", lab, one(TS.sort_tiles(x_, tile_rows)),
+                        one(TS.sort_tiles_plain(x_, tile_rows)))
+                compare("sort_tiles", f"{lab} tile=2^11",
+                        one(TS.sort_tiles(x_, small_rows)),
+                        one(TS.sort_tiles_plain(x_, small_rows)))
+                for vv in (io, kvv[:m]):
+                    compare("sort_tiles_kv", lab,
+                            list(TS.sort_tiles_kv(x_, vv, tile_rows)),
+                            list(TS.sort_tiles_kv_plain(x_, vv, tile_rows)))
+                compare("sort_tiles_multi", f"{lab} 2 words",
+                        key_and_list(TS.sort_tiles_multi(x_, [v0_],
+                                                         tile_rows)),
+                        key_and_list(TS.sort_tiles_multi_plain(
+                            x_, [v0_], tile_rows)))
+                for nr in (1, 17):
+                    vals_ = [v0_, *(t[:m] for t in rid[:nr])]
+                    compare("sort_tiles_multi", f"{lab} riders={nr}",
+                            key_and_list(TS.sort_tiles_multi(x_, vals_,
+                                                             tile_rows)),
+                            key_and_list(TS.sort_tiles_multi_plain(
+                                x_, vals_, tile_rows)))
+                for pays in ([v0_, io], [v0_, io, p_]):
+                    compare("sort_tiles_multi",
+                            f"{lab} ncmp=3 streams={1 + len(pays)}",
+                            key_and_list(TS.sort_tiles_multi(
+                                x_, pays, tile_rows, ncmp=3)),
+                            key_and_list(TS.sort_tiles_multi_plain(
+                                x_, pays, tile_rows, ncmp=3)))
+                short_tiles += 1
+            x_ = rfams["distinct97"][:m]
+            for what, call, plain in (
+                    ("keys", lambda: one(TS.sort_tiles(x_, big_rows)),
+                     lambda: one(TS.sort_tiles_plain(x_, big_rows))),
+                    ("kv", lambda: list(TS.sort_tiles_kv(x_, kvv[:m],
+                                                         big_rows)),
+                     lambda: list(TS.sort_tiles_kv_plain(x_, kvv[:m],
+                                                         big_rows))),
+                    ("rider", lambda: key_and_list(TS.sort_tiles_multi(
+                        x_, [iota[:m], pay[:m]], big_rows)),
+                     lambda: key_and_list(TS.sort_tiles_multi_plain(
+                         x_, [iota[:m], pay[:m]], big_rows)))):
+                compare({"keys": "sort_tiles", "kv": "sort_tiles_kv",
+                         "rider": "sort_tiles_multi"}[what],
+                        f"{what} tile=2^18 n=2^15*{k}+{r}", call(), plain())
+            base = (k << 15) + r + 4
+            xq = random_keys_bounded(base, 0, 4, 66, dev)
+            vq = random_keys_bounded(base, 0, 3, 67, dev)
+            rq = random_keys(base, 68, dev)
+            for off in (1, 2, 3):
+                views = [xq[off:off + m], [vq[3 - off:3 - off + m],
+                                           rq[off:off + m]]]
+                compare("sort_tiles_multi",
+                        f"views {off} off n=2^15*{k}+{r}",
+                        key_and_list(TS.sort_tiles_multi(*views, tile_rows)),
+                        key_and_list(TS.sort_tiles_multi_plain(
+                            views[0].contiguous(),
+                            [v.contiguous() for v in views[1]], tile_rows)))
+            del xq, vq, rq, views
+    del rid, rfams, kvv
+    print(f"phase 2: every tile-sort design on a short last tile "
+          f"({short_tiles} n and families, tiles of 2^11, 2^15 and 2^18, "
+          f"views off alignment): bit exact")
+    # merge passes with a short last run: a last group of 1-8 runs after
+    # 0 and 3 whole groups, its last run of one row or of a third of a
+    # run, runs of 2^15 and 1000 rows, 1, 3 and 4 streams at ncmp 1-3
+    cases = 0
+    mfams = ("distinct97", "uniform", "all_ones")
+    fams = {**families(n2, 70), "all_ones": ones}
+    extra = [pay, iota, random_keys_bounded(n2, 0, 5, 69, dev)]
+    for run in (1 << 15, 1000):
+        for q in (0, 3):
+            for g in range(1, 9):
+                for last in (1, run // 3 + 1):
+                    m = (8 * q + g - 1) * run + last
+                    fam = mfams[cases % 3]
+                    x_ = fams[fam][:m]
+                    for ns, ncmp in ((1, 1), (3, 2), (4, 3)):
+                        label = (f"{fam} run={run} n={m} (last run {last}) "
+                                 f"streams={ns} ncmp={ncmp}")
+                        streams = sort_segments(
+                            [x_, *(e[:m] for e in extra[:ncmp - 1])],
+                            [e[:m] for e in extra[ncmp - 1:ns - 1]], run)
+                        kx, vx = streams[0], streams[1:]
+                        compare("merge_path_splits", label,
+                                [M.merge_path_splits(kx, vx, run, ncmp)
+                                 .view(torch.uint32)],
+                                [M.merge_path_splits_plain(kx, vx, run, ncmp)
+                                 .view(torch.uint32)])
+                        compare("merge_pass_multi", label,
+                                key_and_list(M.merge_pass_multi(kx, vx, run,
+                                                                ncmp)),
+                                key_and_list(M.merge_pass_multi_plain(
+                                    kx, vx, run, ncmp)))
+                    cases += 1
+    del extra, fams, ones
+    print(f"phase 2: merge-path partition and merge bit exact on {cases} "
+          f"passes with a short last run (a last group of 1-8 runs)")
+    # the chain at the cells' n: Q1's and the join's ~1.8 * 10^8 rows, the
+    # records' 10^8, and 2^27 + 1 (a last group of one one-row run):
+    # keys, kv and (key, payload 0) with a rider against the stable
+    # torch.sort of the "xla" engine
+    for m in (10 ** 8, 180_000_000, (1 << 27) + 1):
+        k_ = random_keys_bounded(m, 0, 1 << 20, 71, dev)
+        check_keys(merge_sort_keys(k_), torch_sort_u32(k_)[0],
+                   f"merge_sort_keys n={m}")
+        want, wperm = torch_sort_u32(k_)
+        sk, sr = merge_sort_with_ranks(k_)
+        check_ranks(k_, sk, sr, want, f"merge_sort_with_ranks n={m}")
+        del want, wperm, sk, sr
+        v_ = random_keys_bounded(m, 0, 3, 72, dev)
+        r_ = random_keys(m, 73, dev)
+        got = _sort_rows(k_, [v_], [r_], "merge")
+        exp = _sort_rows(k_, [v_], [r_], "xla")
+        for g, w, what in zip((got[0], *got[1], *got[2]),
+                              (exp[0], *exp[1], *exp[2]),
+                              ("key", "payload 0", "rider")):
+            check_keys(g, w, f"chain (key, payload 0) + rider n={m} {what}")
+        del k_, v_, r_, got, exp
+    torch.cuda.synchronize()
+    print("phase 2: the chain at n = 10^8, 1.8 * 10^8 and 2^27 + 1 (keys, "
+          "kv, key + payload 0 + rider) against stable torch.sort: bit exact")
     # merge_pass_runs: every range of merge_runs_chunked (trimmed buffers
     # after the first range) against the plain version, and each merge
     # against a stable torch.sort: each family as S sorted runs with the
@@ -1681,7 +1848,7 @@ def main() -> int:
     # the runner's scan/hier record calls the hierarchical scan 7 times (a
     # warm-up, 5 timed, the verify)
     # sort_records of 10-byte keys: three sort_lex passes of 10^8 rows
-    # (padded to 2^27: 4 merge passes each), one gather
+    # (4 merge passes each, the last run of each short), one gather
     exact = {"chunked": ("merge_pass_runs", chunked_launches,
                          2 * 2 * FL.NRANGES),
              "records (cluster_sort)": ("cluster_sort", records_launches, 3),
@@ -1896,6 +2063,29 @@ def main() -> int:
             del library
             run *= M.KWAY
         del streams
+    # the key+pos+payload chain at 10^8 rows (the records' n; the join's
+    # and Q1's n are no power-of-two count of tiles either), beside 2^27:
+    # the tile sort's short last tile (3052 whole tiles and 5888 rows),
+    # then four passes, the last run of each short
+    n8 = 10 ** 8
+    streams = check_and_time(
+        "sort_tiles_multi", "key+pos+payload, a short last tile",
+        TS.sort_tiles_multi, TS.sort_tiles_multi_plain,
+        (random_keys(n8, 54, dev), [iota_u32(n8, dev), random_keys(n8, 55,
+                                                                   dev)],
+         tile_rows), 2 * 4 * n8 * 3, key_and_list, elems=n8)
+    run = 1 << 15
+    while run < n8:
+        what = f"key+pos+payload run=2^{run.bit_length() - 1}, a short run"
+        trace_merge(f"{what} n={n8}", 2 * 4 * n8 * 3,
+                    lambda s=streams, r=run: M.merge_pass_multi(s[0], s[1:],
+                                                                r))
+        streams = check_and_time(
+            "merge_pass_multi", what, M.merge_pass_multi,
+            M.merge_pass_multi_plain, (streams[0], streams[1:], run),
+            2 * 4 * n8 * 3, key_and_list, elems=n8)
+        run *= M.KWAY
+    del streams
     # the merge design at the cells' shapes: the join's and Q1's 2^28 rows
     # with one rider (uniform keys; Q1's 4 keys and 3 payload values), the
     # records' 2^27 rows with three riders

@@ -75,6 +75,27 @@ def row_order(words, width: int, flip1: bool = False) -> torch.Tensor:
     return _stable_rows(order_key(words[:2], flip1).view(-1, width), perm)
 
 
+def segment_orders(words, width: int, flip1: bool = False):
+    """`row_order` of u32 rows cut into segments of `width` rows, the last
+    ending at n (it may be shorter): (lo, hi, perm) of rows [lo, hi), for
+    the whole segments together, then for the short last one."""
+    n = words[0].shape[0]
+    full = n - n % width
+    return [(lo, hi, row_order([w[lo:hi] for w in words],
+                               min(width, hi - lo), flip1))
+            for lo, hi in ((0, full), (full, n)) if hi > lo]
+
+
+def sort_segments(words, riders, width: int, flip1: bool = False):
+    """The u32 streams words, then riders, each segment of `width` rows
+    (the last may be shorter) stably sorted by the words."""
+    parts = [[take_rows(s[lo:hi], perm) for s in (*words, *riders)]
+             for lo, hi, perm in segment_orders(words, width, flip1)]
+    if not parts:
+        return [*words, *riders]
+    return [torch.cat(c) if len(c) > 1 else c[0] for c in zip(*parts)]
+
+
 def _stable_rows(key: torch.Tensor, perm) -> torch.Tensor:
     """perm refined by a stable sort of each row of key taken along it."""
     if perm is not None:

@@ -22,10 +22,12 @@ reach the profiler's timeline, on its clock, while a profiler runs, and
 cost one flag check otherwise. `COUNTS` holds counters that are always on,
 on every device: `host_syncs` (device values read on the host, each
 through `host_value` or `to_host`), `int64_bytes` (bytes of the int64
-columns that `core/convert.py` `u32_to_i64` makes) and `record_bytes`
+columns that `core/convert.py` `u32_to_i64` makes), `record_bytes`
 (bytes of whole records that `kernels/records.py` `gather_records`
-moves). `counts()` copies them; a reader takes the difference of two
-copies.
+moves) and `ragged_sorts` (merge-engine sorts, ops/sort.py
+`_merge_chain`, whose n is not a power-of-two count of whole tiles: a
+short last tile or a short last run). `counts()` copies them; a reader
+takes the difference of two copies.
 """
 from __future__ import annotations
 
@@ -57,7 +59,8 @@ def trace(log_dir: str, create_perfetto_link: bool = False):
 _OFF = contextlib.nullcontext()     # every span while no profiler runs
 HOST_SYNC = "lsd.host_sync"
 
-COUNTS = {"host_syncs": 0, "int64_bytes": 0, "record_bytes": 0}
+COUNTS = {"host_syncs": 0, "int64_bytes": 0, "record_bytes": 0,
+          "ragged_sorts": 0}
 
 
 def annotate(name: str):

@@ -4,8 +4,9 @@
 //
 //   * merge_pass_multi (_merge_kernel_multi / _merge_kernel_multi_pipe,
 //     merge.py:433, :474):
-//     the input is n rows in sorted runs of run_len; every group of up to
-//     8 consecutive runs becomes one sorted run.
+//     the input is n rows in sorted runs of run_len, the last run ending
+//     at n (any n: it may be shorter); every group of up to 8 consecutive
+//     runs becomes one sorted run.
 //   * merge_pass_runs (the same bodies, slot-routed): S <= 8 sorted runs,
 //     each in a buffer of its own and of its own length, merged into one
 //     order of which the launch writes the rows of ranks [lo, lo + count):
@@ -166,12 +167,13 @@ struct Merge {
 };
 
 // merge_pass_multi: n rows in sorted runs of run_len, one buffer a
-// stream; every kWay consecutive runs form a merge of their own. A
-// group's tiles are its boundaries (its end is implied).
+// stream, the last run ending at n (it may be shorter); every kWay
+// consecutive runs form a merge of their own. A group's tiles are its
+// boundaries (its end is implied).
 struct Groups {
   const uint32_t* in[kMaxStreams];
   uint32_t* out[kMaxStreams];
-  long long run_len, nruns, tiles_per_group, total_tiles;
+  long long n, run_len, nruns, tiles_per_group, total_tiles;
 
   __device__ long long tiles() const { return total_tiles; }
   __device__ Merge merge(long long g) const {
@@ -179,15 +181,18 @@ struct Groups {
   }
   __device__ Merge merge_of(long long b) const {
     Merge m;
-    const long long g = b / tiles_per_group;
+    // tile and group counts lie below 2^31: a 32-bit division (warp 0
+    // plans each tile with it while the other warps merge)
+    const long long g = static_cast<unsigned>(b) /
+                        static_cast<unsigned>(tiles_per_group);
     const long long first_run = g * kWay;
     m.nr = static_cast<int>(nruns - first_run < kWay ? nruns - first_run
                                                      : kWay);
     m.b0 = g * tiles_per_group;
-    m.rows = m.nr * run_len;
+    m.base = first_run * run_len;
+    m.rows = m.nr * run_len < n - m.base ? m.nr * run_len : n - m.base;
     m.nb = (m.rows + kTile - 1) / kTile;
     m.r0 = 0;
-    m.base = first_run * run_len;
     m.out0 = m.base;
     m.end_stored = false;
     return m;
@@ -196,9 +201,12 @@ struct Groups {
     return in[t] + m.base + j * run_len;
   }
   __device__ long long lo(int) const { return 0; }
-  __device__ long long hi(int) const { return run_len; }
-  __device__ long long sum_lo(const Merge&) const { return 0; }
-  __device__ long long sum_hi(const Merge& m) const { return m.rows; }
+  // run j < m.nr ends at its length: run_len, but for the last run of the
+  // pass
+  __device__ long long hi(const Merge& m, int j) const {
+    const long long left = m.rows - j * run_len;
+    return left < run_len ? left : run_len;
+  }
 };
 
 // merge_pass_runs: one merge of nruns runs, each stream of each in a
@@ -230,9 +238,7 @@ struct Runs {
     return in[j][t];
   }
   __device__ long long lo(int j) const { return first[j]; }
-  __device__ long long hi(int j) const { return end[j]; }
-  __device__ long long sum_lo(const Merge&) const { return sum_first; }
-  __device__ long long sum_hi(const Merge&) const { return sum_end; }
+  __device__ long long hi(const Merge&, int j) const { return end[j]; }
 };
 
 // --- the merge-path partition --------------------------------------------
@@ -856,13 +862,13 @@ coarse_splits(P p, long long stride, long long parent, long long per_merge,
     long long lo = 0, hi = 0;
     if (j < m.nr && parent == 0) {
       lo = p.lo(j);
-      hi = p.hi(j);
+      hi = p.hi(m, j);
     } else if (j < m.nr) {
       const long long t0 = t - t % parent;
       long long t1 = t0 + parent;
       if (m.end_stored && t1 > last) t1 = last;
       lo = corank[(m.b0 + t0) * kWay + j];
-      hi = t1 < m.nb ? corank[(m.b0 + t1) * kWay + j] : p.hi(j);
+      hi = t1 < m.nb ? corank[(m.b0 + t1) * kWay + j] : p.hi(m, j);
     }
     set.lo[j] = lo;
     set.hi[j] = hi;
@@ -902,7 +908,7 @@ merge_splits(P p, long long per_merge, int* __restrict__ corank) {
     span.lo[j] = live ? corank[(m.b0 + t0) * kWay + j] : 0;
     span.hi[j] = !live           ? 0
                  : right < m.nb ? corank[(m.b0 + right) * kWay + j]
-                                : p.hi(j);
+                                : p.hi(m, j);
   }
   __syncthreads();
   if (threadIdx.x == 0) finish_set(span, kSpanM);
@@ -1015,7 +1021,7 @@ __device__ __forceinline__ void window_of(const P& p,
   if (j < m.nr) {
     c0 = corank[b * kWay + j];
     c1 = b + 1 < m.b0 + m.nb ? corank[(b + 1) * kWay + j]
-                             : static_cast<int>(p.hi(j));
+                             : static_cast<int>(p.hi(m, j));
   }
 }
 
@@ -1504,21 +1510,22 @@ cudaError_t launch_tiles(const P& p, long long tiles, int ns, int ncmp,
   }
 }
 
-// Output tiles of a merge pass of n rows in runs of run_len: the tiles of
-// a full group (of the first group), and in all.
+// Output tiles of a merge pass of n rows in runs of run_len (the last run
+// ending at n): the tiles of a full group (of the first group), and in
+// all.
 void tile_plan(long long n, long long run_len, long long* tiles_per_group,
                long long* total) {
-  const long long nruns = n / run_len;
-  const long long groups = (nruns + kWay - 1) / kWay;
-  const long long first = (nruns < kWay ? nruns : kWay) * run_len;
-  const long long last = (nruns - (groups - 1) * kWay) * run_len;
+  const long long group = kWay * run_len;
+  const long long groups = (n + group - 1) / group;
+  const long long first = n < group ? n : group;
+  const long long last = n - (groups - 1) * group;
   *tiles_per_group = (first + kTile - 1) / kTile;
   *total = (groups - 1) * *tiles_per_group + (last + kTile - 1) / kTile;
 }
 
 bool bad_pass(int ns, long long n, long long run_len, int ncmp) {
   return ns < 1 || ns > kMaxStreams || ncmp < 1 || ncmp > 3 || ncmp > ns ||
-         run_len < 1 || run_len > 0x7fffffffLL || n < 0 || n % run_len != 0;
+         run_len < 1 || run_len > 0x7fffffffLL || n < 0;
 }
 
 // The Groups of a pass over in[0, ns) (and out[0, ns) when given).
@@ -1529,8 +1536,9 @@ Groups groups_of(const void* const* in, void* const* out, int ns, long long n,
     g.in[t] = static_cast<const uint32_t*>(in[t]);
     g.out[t] = out ? static_cast<uint32_t*>(out[t]) : nullptr;
   }
+  g.n = n;
   g.run_len = run_len;
-  g.nruns = n / run_len;
+  g.nruns = (n + run_len - 1) / run_len;
   tile_plan(n, run_len, &g.tiles_per_group, &g.total_tiles);
   return g;
 }
@@ -1580,7 +1588,7 @@ extern "C" int lsd_merge_tile() { return kTile; }
 // the tile plan of tile_plan) gets, for each output tile, the number of rows
 // of each run of its group that the merged order puts before the tile. in[]
 // holds the first ncmp (1..3) u32 streams of n rows, stream 0 the key, in
-// sorted runs of run_len. Returns a cudaError_t.
+// sorted runs of run_len, the last ending at n. Returns a cudaError_t.
 extern "C" int lsd_merge_path_splits(const void* const* in, long long n,
                                      long long run_len, int ncmp,
                                      void* corank, void* stream) {
@@ -1593,7 +1601,7 @@ extern "C" int lsd_merge_path_splits(const void* const* in, long long n,
 }
 
 // One merge pass over `ns` (1..8) u32 streams of n rows, stream 0 the key:
-// groups of 8 sorted runs of run_len (n a multiple of run_len) become
+// groups of 8 sorted runs of run_len (the last ending at n) become
 // sorted runs, ordered by the first ncmp (1..3) streams, through the
 // partition `corank` of lsd_merge_path_splits. out[] must not alias in[].
 // Returns a cudaError_t.

@@ -56,6 +56,18 @@
 // thread a pair, and the cluster kernel finishes each phase's lower
 // stages.
 //
+// Any n: the last tile may end before its 2^tile_log2 rows. Its rows from
+// n on are never read, written or allocated. A CTA that reaches past n
+// (decided once a CTA; full tiles run the code they ran before) holds
+// them as all-ones compared words (word 1 after its flip1 XOR too) with
+// their own in-tile indices, the tile's largest: under either design's
+// compare they sort after every row that exists, which the CTA stores
+// alone. A kv row equal to one (key all ones, value 0x7FFFFFFF) has the
+// same words, so the stored rows do not change. Device-memory stages keep
+// every row of a tile in device memory, so a schedule with them takes
+// whole tiles (kernels/tile_sort.py sorts a short last tile through one
+// tile of scratch).
+//
 // The merge design, tile_merge::cluster_sort, sorts the rider path's tiles
 // (kernels/tile_sort.py `design`): (key, payload 0, index word) at the
 // 2^15-row tile, every sort_tiles_multi call at ncmp = 2 with riders (the
@@ -132,6 +144,7 @@ struct Shape {
   int tile_log2;
   int rows_log2;
   uint32_t flip1;
+  long long n;  // rows that exist: the last tile may end before its span
 };
 
 enum : int { kStage = 0, kFirst = 1, kGroup = 2 };
@@ -387,13 +400,17 @@ __device__ __forceinline__ void first_phases(uint32_t (&v)[W][1 << G],
 // CTA starting at global row cta_base: 16-byte vectors where the rows are
 // consecutive (b == 0) and the pointer allows, words otherwise. Word 1 is
 // XORed with flip1 on the way in and out; a null source is the row's index
-// in its tile.
+// in its tile. In a CTA that reaches past the last row (ragged: only its
+// first `live` rows exist), the rows from n on are neither read nor
+// written: they hold all-ones words (the largest, word 1 after its XOR
+// too) and keep their index, the largest of their tile, so they sort after
+// every row that exists.
 template <int W, int G>
 __device__ __forceinline__ void load_rows(uint32_t (&v)[W][1 << G],
                                           const Words& io, const Shape& sh,
                                           long long cta_base,
                                           uint32_t cta_off, uint32_t base,
-                                          int b) {
+                                          int b, bool ragged, uint32_t live) {
   constexpr int E = 1 << G;
   const uint32_t tmask = (1u << sh.tile_log2) - 1u;
 #pragma unroll
@@ -404,6 +421,12 @@ __device__ __forceinline__ void load_rows(uint32_t (&v)[W][1 << G],
 #pragma unroll
       for (int e = 0; e < E; ++e)
         v[w][e] = (cta_off | base | (static_cast<uint32_t>(e) << b)) & tmask;
+    } else if (ragged) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const uint32_t l = base | (static_cast<uint32_t>(e) << b);
+        v[w][e] = l < live ? s[cta_base + l] ^ f : ~0u;
+      }
     } else if (b == 0 &&
                (reinterpret_cast<uintptr_t>(s + cta_base) & 15) == 0) {
       const uint4* p = reinterpret_cast<const uint4*>(s + cta_base + base);
@@ -428,11 +451,17 @@ __device__ __forceinline__ void store_rows(const uint32_t (&v)[W][1 << G],
                                            const Words& io, const Riders& rd,
                                            const Shape& sh,
                                            long long cta_base, uint32_t base,
-                                           int b) {
+                                           int b, bool ragged, uint32_t live) {
   constexpr int E = 1 << G;
   const long long tile_mask = (1LL << sh.tile_log2) - 1;
+  auto local = [&](int e) { return base | (static_cast<uint32_t>(e) << b); };
   auto put = [&](uint32_t* d, const uint32_t (&x)[E]) {
-    if (b == 0 && (reinterpret_cast<uintptr_t>(d + cta_base) & 15) == 0) {
+    if (ragged) {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (local(e) < live) d[cta_base + local(e)] = x[e];
+    } else if (b == 0 &&
+               (reinterpret_cast<uintptr_t>(d + cta_base) & 15) == 0) {
       uint4* p = reinterpret_cast<uint4*>(d + cta_base + base);
 #pragma unroll
       for (int q = 0; q < E / 4; ++q)
@@ -440,8 +469,7 @@ __device__ __forceinline__ void store_rows(const uint32_t (&v)[W][1 << G],
                           x[4 * q + 3]);
     } else {
 #pragma unroll
-      for (int e = 0; e < E; ++e)
-        d[cta_base + (base | (static_cast<uint32_t>(e) << b))] = x[e];
+      for (int e = 0; e < E; ++e) d[cta_base + local(e)] = x[e];
     }
   };
 #pragma unroll
@@ -453,14 +481,16 @@ __device__ __forceinline__ void store_rows(const uint32_t (&v)[W][1 << G],
     for (int e = 0; e < E; ++e) x[e] = v[w][e] ^ f;
     put(io.dst[w], x);
   }
-  // riders: each output row takes the rider of the row its index word names
+  // riders: each output row takes the rider of the row its index word
+  // names (a row that exists names one that exists: those sort first)
   for (int k = 0; k < rd.count; ++k) {
     uint32_t x[E];
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      const long long g =
-          cta_base + (base | (static_cast<uint32_t>(e) << b));
-      x[e] = rd.src[k][(g & ~tile_mask) + v[W - 1][e]];
+      const long long g = cta_base + local(e);
+      x[e] = !ragged || local(e) < live
+                 ? rd.src[k][(g & ~tile_mask) + v[W - 1][e]]
+                 : 0u;
     }
     put(rd.dst[k], x);
   }
@@ -528,6 +558,12 @@ cluster_sort(Words io, Riders rd, Steps prog, Shape sh) {
   const long long cta_base = static_cast<long long>(blockIdx.x) << r;
   const uint32_t cta_off =
       static_cast<uint32_t>(cta_base) & ((1u << t) - 1u);
+  // the CTA's rows that exist: all but in the last tile's CTAs
+  const long long left = sh.n - cta_base;
+  const uint32_t live = left >= (1LL << r) ? 1u << r
+                        : left > 0        ? static_cast<uint32_t>(left)
+                                          : 0u;
+  const bool ragged = live != 1u << r;
   uint32_t v[W][E];
   for (int i = 0; i < prog.count; ++i) {
     const Step st = decode(prog.code[i]);
@@ -541,7 +577,9 @@ cluster_sort(Words io, Riders rd, Steps prog, Shape sh) {
           const uint32_t* s = io.src[w];
           const uint32_t f = w == 1 ? sh.flip1 : 0u;
           sm[w * RS + swizzle<G>(l)] =
-              s ? s[cta_base + l] ^ f : (cta_off | l) & ((1u << t) - 1u);
+              !s ? (cta_off | l) & ((1u << t) - 1u)
+              : !ragged || l < live ? s[cta_base + l] ^ f
+                                    : ~0u;
         }
       }
     }
@@ -556,7 +594,8 @@ cluster_sort(Words io, Riders rd, Steps prog, Shape sh) {
       const uint32_t base = (g & ((1u << b) - 1u)) | ((g >> b) << (b + G));
       const Offsets<G> at(base, b);
       if (from_global) {
-        load_rows<W, G>(v, io, sh, cta_base, cta_off, base, b);
+        load_rows<W, G>(v, io, sh, cta_base, cta_off, base, b, ragged,
+                        live);
       } else {
         read_smem<W, G, RS>(v, sm, at);
       }
@@ -596,7 +635,7 @@ cluster_sort(Words io, Riders rd, Steps prog, Shape sh) {
         }
       }
       if (i + 1 == prog.count) {
-        store_rows<W, G>(v, io, rd, sh, cta_base, base, b);
+        store_rows<W, G>(v, io, rd, sh, cta_base, base, b, ragged, live);
       } else {
         write_smem<W, G, RS>(v, sm, at);
       }
@@ -623,16 +662,17 @@ constexpr int max_rows_log2(int W, int G) {
 // Whether `code` is a schedule the kernels can run without leaving their
 // rows: fields in range, a cluster run of at most kMaxSteps steps, kFirst
 // only first in a run, the last step of the program a store of whole
-// vectors (b == 0). Whether it sorts is kernels/tile_sort.py's to show.
+// vectors (b == 0), device-memory stages only where `stages` allows them.
+// Whether it sorts is kernels/tile_sort.py's to show.
 bool valid_program(const int* code, int ncode, int t, int r, int span,
-                   int G, bool stored_index) {
+                   int G, bool stages) {
   if (ncode < 1 || decode(code[0]).kind == kStage) return false;
   int run = 0;
   for (int i = 0; i < ncode; ++i) {
     const Step s = decode(code[i]);
     if (s.kl < 1 || s.kl > t) return false;
     if (s.kind == kStage) {
-      if (!stored_index || s.jx < span || s.jx >= s.kl) return false;
+      if (!stages || s.jx < span || s.jx >= s.kl) return false;
       run = 0;
       continue;
     }
@@ -655,10 +695,12 @@ bool valid_program(const int* code, int ncode, int t, int r, int span,
   return last.kind != kStage && last.b == 0;
 }
 
+// A cluster_sort launch over `rows` rows (the rows its CTAs cover: sh.n
+// rounded up to whole CTAs and tiles).
 template <int W, int G>
 cudaError_t launch_cluster(const Words& io, const Riders& rd,
                            const Steps& prog, const Shape& sh, int cluster,
-                           long long n, cudaStream_t stream) {
+                           long long rows, cudaStream_t stream) {
   constexpr int RS = 1 << max_rows_log2(W, G);
   auto kern = cluster_sort<W, G, max_threads(W, G), RS>;
   static_assert(W * RS * 4 <= kSmemLimit, "a CTA's words must fit");
@@ -667,7 +709,7 @@ cudaError_t launch_cluster(const Words& io, const Riders& rd,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(n >> sh.rows_log2));
+  cfg.gridDim = dim3(static_cast<unsigned>(rows >> sh.rows_log2));
   cfg.blockDim = dim3(static_cast<unsigned>(
       imin(max_threads(W, G), 1 << (sh.rows_log2 - G))));
   cfg.dynamicSmemBytes = smem;
@@ -688,17 +730,18 @@ cudaError_t launch_cluster(const Words& io, const Riders& rd,
   return cudaGetLastError();
 }
 
-// Run the program: each maximal run of cluster steps is one cluster_sort
-// launch, each kStage one bitonic_stage pass in place on dst. Launches
+// Run the program over the `rows` rows its CTAs cover: each maximal run
+// of cluster steps is one cluster_sort launch, each kStage one
+// bitonic_stage pass in place on dst (only where rows == sh.n). Launches
 // after the first work in place; the riders move in the last.
 template <int W, int G>
 cudaError_t sort_cluster(const Words& io, const Riders& rd, const int* code,
-                         int ncode, const Shape& sh, int cluster, long long n,
-                         cudaStream_t stream) {
+                         int ncode, const Shape& sh, int cluster,
+                         long long rows, cudaStream_t stream) {
   Words inplace = io;
   for (int w = 0; w < W; ++w) inplace.src[w] = io.dst[w];
   const Riders none{};
-  const long long npairs = n / 2;
+  const long long npairs = rows / 2;
   const unsigned stage_blocks =
       static_cast<unsigned>((npairs + kStageThreads - 1) / kStageThreads);
   cudaError_t err = cudaSuccess;
@@ -716,7 +759,7 @@ cudaError_t sort_cluster(const Words& io, const Riders& rd, const int* code,
     while (i < ncode && decode(code[i]).kind != kStage)
       prog.code[prog.count++] = code[i++];
     err = launch_cluster<W, G>(first == 0 ? io : inplace, i == ncode ? rd : none,
-                            prog, sh, cluster, n, stream);
+                            prog, sh, cluster, rows, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -727,12 +770,14 @@ cudaError_t sort_cluster(const Words& io, const Riders& rd, const int* code,
 namespace tile_merge {
 
 // A launch's compared words (the index word is made in the kernel) and
-// where they go; a null output is not stored.
+// where they go; a null output is not stored. Rows n and after of the last
+// tile do not exist.
 struct IO {
   const uint32_t* key;
   const uint32_t* val;
   uint32_t* key_out;
   uint32_t* val_out;
+  long long n;
 };
 
 // Row (key, payload 0) as the 64-bit integer it orders by.
@@ -896,13 +941,24 @@ cluster_sort(IO io, Riders rd) {
   const int t = threadIdx.x;
   const long long base = static_cast<long long>(blockIdx.x) << RLOG;
   const long long tile = base - (static_cast<long long>(rank) << RLOG);
+  // only the last tile's CTAs can reach past the last row: there the rows
+  // from n on are neither read nor written, and sort after every row that
+  // exists, as all-ones (key, payload 0) with the tile's largest indices
+  const bool ragged = base + R > io.n;
   // the thread's 2^G consecutive rows, sorted in registers by (key,
   // payload 0, index): a bitonic network
   {
     uint32_t v[3][E];
     const long long r0 = base + (t << G);
-    if (((reinterpret_cast<uintptr_t>(io.key + base) |
-          reinterpret_cast<uintptr_t>(io.val + base)) & 15) == 0) {
+    if (ragged) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const bool in = r0 + e < io.n;
+        v[0][e] = in ? io.key[r0 + e] : ~0u;
+        v[1][e] = in ? io.val[r0 + e] : ~0u;
+      }
+    } else if (((reinterpret_cast<uintptr_t>(io.key + base) |
+                 reinterpret_cast<uintptr_t>(io.val + base)) & 15) == 0) {
       const uint4* pk = reinterpret_cast<const uint4*>(io.key + r0);
       const uint4* pv = reinterpret_cast<const uint4*>(io.val + r0);
 #pragma unroll
@@ -979,13 +1035,17 @@ cluster_sort(IO io, Riders rd) {
   }
   // the CTA's ranks out, coalesced: the compared words, then each rider
   // gathered by the index word
+  // (ranks from n on, in a ragged CTA, are the missing rows: not stored)
+  const int ranks = ragged ? static_cast<int>(io.n - base) : R;
   if (io.key_out != nullptr) {
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const int i = t + e * THREADS;
       const uint2 r = kv_of(in)[slot<G>(i)];
-      io.key_out[base + i] = r.x;
-      io.val_out[base + i] = r.y;
+      if (!ragged || i < ranks) {
+        io.key_out[base + i] = r.x;
+        io.val_out[base + i] = r.y;
+      }
     }
   }
   for (int k = 0; k < rd.count; ++k) {
@@ -993,10 +1053,14 @@ cluster_sort(IO io, Riders rd) {
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const int i = t + e * THREADS;
-      y[e] = rd.src[k][tile + ix_of(in)[slot<G>(i)]];
+      y[e] = !ragged || i < ranks ? rd.src[k][tile + ix_of(in)[slot<G>(i)]]
+                                  : 0u;
     }
 #pragma unroll
-    for (int e = 0; e < E; ++e) rd.dst[k][base + t + e * THREADS] = y[e];
+    for (int e = 0; e < E; ++e) {
+      const int i = t + e * THREADS;
+      if (!ragged || i < ranks) rd.dst[k][base + i] = y[e];
+    }
   }
 }
 
@@ -1015,7 +1079,9 @@ cudaError_t launch(const IO& io, const Riders& rd, long long n,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(n >> RLOG));
+  // whole clusters: the last tile's CTAs past n sort only missing rows
+  constexpr long long tile = static_cast<long long>(C) << RLOG;
+  cfg.gridDim = dim3(static_cast<unsigned>((n + tile - 1) / tile * C));
   cfg.blockDim = dim3((1 << RLOG) >> G);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -1040,8 +1106,9 @@ cudaError_t launch(const IO& io, const Riders& rd, long long n,
 }  // namespace
 
 // Sort every tile of 2^15 rows of (key, val, index) with the merge design
-// (tile_merge::cluster_sort; see the header): n a multiple of 2^15, the
-// words compared unsigned, key first, ties in index order;
+// (tile_merge::cluster_sort; see the header), the last tile ending at n
+// (it may be short), the words compared unsigned, key first, ties in
+// index order;
 // rider_dst[k][row] = rider_src[k][tile_base + index]. key_out and val_out
 // are both given or both null (not stored). Returns a cudaError_t; a
 // refused cluster launch returns the occupancy query's error or
@@ -1052,16 +1119,16 @@ extern "C" int lsd_sort_tiles_merge(const void* key, const void* val,
                                     void* const* rider_dst, int nriders,
                                     void* stream) {
   using namespace tile_merge;
-  constexpr int tile_log2 = kRowsLog2 + (kCluster == 4 ? 2 : 1);
   if (key == nullptr || val == nullptr || n < 0 ||
-      n % (1LL << tile_log2) != 0 || (key_out == nullptr) != (val_out == nullptr) ||
-      nriders < 0 || nriders > kMaxRiders) {
+      (key_out == nullptr) != (val_out == nullptr) || nriders < 0 ||
+      nriders > kMaxRiders) {
     return cudaErrorInvalidValue;
   }
   if (n == 0) return cudaSuccess;
   const IO io{static_cast<const uint32_t*>(key),
               static_cast<const uint32_t*>(val),
-              static_cast<uint32_t*>(key_out), static_cast<uint32_t*>(val_out)};
+              static_cast<uint32_t*>(key_out), static_cast<uint32_t*>(val_out),
+              n};
   Riders rd{};
   rd.count = nriders;
   for (int k = 0; k < nriders; ++k) {
@@ -1072,13 +1139,15 @@ extern "C" int lsd_sort_tiles_merge(const void* key, const void* val,
                                          static_cast<cudaStream_t>(stream));
 }
 
-// Sort every tile of 2^tile_log2 rows of `nwords` (1..4) u32 words; n a
-// multiple of the tile, 1 <= tile_log2 <= 30, with cluster_sort: clusters
-// of `cluster` CTAs of 2^rows_log2 rows each, E = 2^G rows a thread at a
-// time (a built pair of words and G, see max_threads), by the schedule
-// `code` (kernels/tile_sort.py `tile_plan`). src[w] == nullptr makes word
-// w the row's index in its tile; dst[w] == nullptr leaves it unstored
-// (allowed only when the schedule has no device-memory stage). With
+// Sort every tile of 2^tile_log2 rows of `nwords` (1..4) u32 words, the
+// last tile ending at n (it may be short), 1 <= tile_log2 <= 30, with
+// cluster_sort: clusters of `cluster` CTAs of 2^rows_log2 rows each, E =
+// 2^G rows a thread at a time (a built pair of words and G, see
+// max_threads), by the schedule `code` (kernels/tile_sort.py `tile_plan`).
+// src[w] == nullptr makes word w the row's index in its tile; dst[w] ==
+// nullptr leaves it unstored. A schedule with a device-memory stage needs
+// every word stored and n a multiple of the tile (its stages keep every
+// row of a tile in device memory). With
 // nriders > 0 the last word must be the index word, and
 // rider_dst[k][row] = rider_src[k][tile_base + index]. Returns a
 // cudaError_t: a refused cluster launch (no cluster of that size and
@@ -1092,7 +1161,7 @@ extern "C" int lsd_sort_tiles(const void* const* src, void* const* dst,
                               void* const* rider_dst, int nriders,
                               void* stream) {
   if (nwords < 1 || nwords > kMaxWords || tile_log2 < 1 || tile_log2 > 30 ||
-      n % (1LL << tile_log2) != 0) {
+      n < 0) {
     return cudaErrorInvalidValue;
   }
   const auto st = static_cast<cudaStream_t>(stream);
@@ -1105,13 +1174,16 @@ extern "C" int lsd_sort_tiles(const void* const* src, void* const* dst,
   }
   const int cluster_log2 = cluster == 4 ? 2 : (cluster == 2 ? 1 : 0);
   const int span = rows_log2 + cluster_log2;
+  // the rows the CTAs cover: whole tiles, whole spans
+  const long long tile = 1LL << tile_log2;
+  const long long rows = (n + tile - 1) / tile * tile;
   if ((cluster != 1 && cluster != 2 && cluster != 4) || nriders < 0 ||
       nriders > kMaxRiders || G < 1 || G > 6 || rows_log2 < G ||
       rows_log2 > max_rows_log2(nwords, G) ||
-      n % (1LL << span) != 0 || (cluster > 1 && span > tile_log2) ||
+      rows % (1LL << span) != 0 || (cluster > 1 && span > tile_log2) ||
       (nriders > 0 && io.src[nwords - 1] != nullptr) ||
       !valid_program(code, ncode, tile_log2, rows_log2, span, G,
-                     stored_index)) {
+                     stored_index && rows == n)) {
     return cudaErrorInvalidValue;
   }
   if (n == 0) return cudaSuccess;
@@ -1121,11 +1193,11 @@ extern "C" int lsd_sort_tiles(const void* const* src, void* const* dst,
     rd.src[k] = static_cast<const uint32_t*>(rider_src[k]);
     rd.dst[k] = static_cast<uint32_t*>(rider_dst[k]);
   }
-  const Shape sh{tile_log2, rows_log2, flip1};
+  const Shape sh{tile_log2, rows_log2, flip1, n};
   switch (nwords * 8 + G) {
 #define LSD_CASE(W, G1)                                                    \
   case W * 8 + G1:                                                         \
-    return sort_cluster<W, G1>(io, rd, code, ncode, sh, cluster, n, st);
+    return sort_cluster<W, G1>(io, rd, code, ncode, sh, cluster, rows, st);
     LSD_CASE(1, 6)
     LSD_CASE(2, 5)
     LSD_CASE(3, 4)

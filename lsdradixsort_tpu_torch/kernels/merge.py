@@ -4,8 +4,9 @@
 (lsdradixsort_tpu/kernels/merge.py).
 
 One `merge_pass_multi` pass turns every group of KWAY = 8 consecutive
-sorted runs of `run_len` rows into one sorted run (the last group may
-hold fewer runs). Rows are ordered by the key, then by payload 0 when
+sorted runs of `run_len` rows into one sorted run; n is any count, the
+last run ending at n (the last group may hold fewer runs, and its last
+run fewer rows). Rows are ordered by the key, then by payload 0 when
 ncmp >= 2 (the default with payloads), then by payload 1 when ncmp = 3
 (the 64-bit single-chain sort), all unsigned as in the TPU kernel
 (merge.py:388-389); equal rows keep run order, then input order. Every
@@ -47,7 +48,9 @@ import ctypes
 
 import torch
 
-from lsdradixsort_tpu_torch.core.convert import gather, row_order, take_rows
+from lsdradixsort_tpu_torch.core.convert import (gather, row_order,
+                                                 segment_orders,
+                                                 sort_segments)
 from lsdradixsort_tpu_torch.core.profiling import annotate
 from lsdradixsort_tpu_torch.kernels import _build
 
@@ -70,8 +73,8 @@ _SIGN32 = -(1 << 31)  # 0x80000000 as an int32 bit pattern
 def _check(keys: torch.Tensor, vals, run_len: int, ncmp) -> int:
     """Validate the inputs; return ncmp."""
     n = keys.shape[0]
-    if run_len < 1 or n % run_len:
-        raise ValueError(f"n={n} must be a multiple of run_len={run_len}")
+    if run_len < 1:
+        raise ValueError(f"run_len={run_len} must be positive")
     if 1 + len(vals) > MAX_STREAMS:
         raise ValueError(f"at most {MAX_STREAMS - 1} payload streams, got "
                          f"{len(vals)}")
@@ -92,16 +95,16 @@ def _check(keys: torch.Tensor, vals, run_len: int, ncmp) -> int:
 
 def tile_plan(n: int, run_len: int) -> tuple[int, int]:
     """(tiles of the first group, tiles in all) of a merge pass's output:
-    each group of up to KWAY runs in tiles of TILE rows, the last short.
-    Tile t of the pass is tile t % tiles_per_group of group t //
-    tiles_per_group (the last group may hold fewer)."""
+    each group of up to KWAY runs (the last ending at n) in tiles of TILE
+    rows, the last short. Tile t of the pass is tile t % tiles_per_group
+    of group t // tiles_per_group (the last group may hold fewer)."""
     if n == 0:
         return 1, 0
-    nruns = n // run_len
-    groups = -(-nruns // KWAY)
-    per_group = -(-min(nruns, KWAY) * run_len // TILE)
-    last = (nruns - (groups - 1) * KWAY) * run_len
-    return per_group, (groups - 1) * per_group + -(-last // TILE)
+    group = KWAY * run_len
+    groups = -(-n // group)
+    last = n - (groups - 1) * group
+    return -(-min(n, group) // TILE), (groups - 1) * -(-group // TILE) + -(
+        -last // TILE)
 
 
 def merge_path_splits_plain(keys, vals, run_len: int,
@@ -112,27 +115,21 @@ def merge_path_splits_plain(keys, vals, run_len: int,
     vals = list(vals)
     ncmp = _check(keys, vals, run_len, ncmp)
     PLAIN_CALLS["merge_path_splits"] += 1
-    streams = [keys, *vals][:ncmp]
-    n = keys.shape[0]
-    group = KWAY * run_len
-    full = n - n % group
     parts = []
-    for lo, hi in ((0, full), (full, n)):      # full groups, then the rest
-        if hi > lo:
-            width = min(group, hi - lo)
-            perm = row_order([s[lo:hi] for s in streams], width)
-            tiles = -(-width // TILE)
-            run = torch.nn.functional.pad(perm // run_len,
-                                          (0, tiles * TILE - width),
-                                          value=KWAY)
-            cell = (torch.arange(perm.shape[0] * tiles, device=keys.device)
-                    .view(-1, tiles, 1) * (KWAY + 1)
-                    + run.view(-1, tiles, TILE))
-            counts = torch.bincount(cell.view(-1),
-                                    minlength=cell.shape[0] * tiles
-                                    * (KWAY + 1)).view(-1, tiles, KWAY + 1)
-            counts = counts[..., :KWAY]
-            parts.append((counts.cumsum(1) - counts).view(-1, KWAY))
+    # full groups, then the rest
+    for _, _, perm in segment_orders([keys, *vals][:ncmp], KWAY * run_len):
+        width = perm.shape[1]
+        tiles = -(-width // TILE)
+        run = torch.nn.functional.pad(perm // run_len,
+                                      (0, tiles * TILE - width), value=KWAY)
+        cell = (torch.arange(perm.shape[0] * tiles, device=keys.device)
+                .view(-1, tiles, 1) * (KWAY + 1)
+                + run.view(-1, tiles, TILE))
+        counts = torch.bincount(cell.view(-1),
+                                minlength=cell.shape[0] * tiles
+                                * (KWAY + 1)).view(-1, tiles, KWAY + 1)
+        counts = counts[..., :KWAY]
+        parts.append((counts.cumsum(1) - counts).view(-1, KWAY))
     if not parts:
         return torch.zeros((0, KWAY), dtype=torch.int32, device=keys.device)
     return torch.cat(parts).to(torch.int32)
@@ -177,17 +174,7 @@ def merge_pass_multi_plain(keys, vals, run_len: int,
     vals = list(vals)
     ncmp = _check(keys, vals, run_len, ncmp)
     PLAIN_CALLS["merge_pass_multi"] += 1
-    streams = [keys, *vals]
-    n = keys.shape[0]
-    group = KWAY * run_len
-    full = n - n % group
-    parts = []
-    for lo, hi in ((0, full), (full, n)):     # full groups, then the rest
-        if hi > lo:
-            seg = [s[lo:hi] for s in streams]
-            perm = row_order(seg[:ncmp], min(group, hi - lo))
-            parts.append([take_rows(s, perm) for s in seg])
-    out = [torch.cat(cols) for cols in zip(*parts)] if parts else streams
+    out = sort_segments([keys, *vals][:ncmp], vals[ncmp - 1:], KWAY * run_len)
     return out[0], out[1:]
 
 
@@ -199,7 +186,7 @@ def merge_pass_multi(keys: torch.Tensor, vals, run_len: int,
 
     keys and vals: (n,) uint32, sorted in runs of run_len by the compared
     streams (the key, then vals[0] when ncmp >= 2, then vals[1] when
-    ncmp = 3); n % run_len == 0.
+    ncmp = 3), the last run ending at n.
     Returns (sorted_keys, [payloads...]) in runs of KWAY * run_len."""
     vals = list(vals)
     if keys.device.type == "cpu":

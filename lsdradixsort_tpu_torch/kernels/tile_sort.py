@@ -1,6 +1,8 @@
 """Per-tile sort — the port of lsdradixsort_tpu/kernels/tile_sort.py.
 
-Every tile of ``tile_rows * 128`` rows is sorted ascending:
+Every tile of ``tile_rows * 128`` rows is sorted ascending; n is any
+count, the last tile ending at n (it may be short, where the JAX kernels
+need whole tiles):
 
   * `sort_tiles`: keys only (replaces `_bitonic_keys_kernel`).
   * `sort_tiles_kv`: by (key, val), val compared as a SIGNED int32 — the
@@ -32,7 +34,7 @@ from typing import NamedTuple
 
 import torch
 
-from lsdradixsort_tpu_torch.core.convert import row_order, take_rows
+from lsdradixsort_tpu_torch.core.convert import sort_segments
 from lsdradixsort_tpu_torch.core.profiling import annotate
 from lsdradixsort_tpu_torch.kernels import _build
 
@@ -49,8 +51,6 @@ def _check_tiles(keys: torch.Tensor, streams, tile_rows: int) -> int:
         raise ValueError(f"tile_rows={tile_rows} must be a power of 2")
     tile = tile_rows * LANES
     n = keys.shape[0]
-    if n % tile:
-        raise ValueError(f"n={n} must be a multiple of tile={tile}")
     for s in (keys, *streams):
         if s.dtype != torch.uint32 or s.dim() != 1 or s.shape[0] != n:
             raise ValueError("streams must be (n,) torch.uint32, got "
@@ -73,8 +73,7 @@ def _ncmp(values, ncmp) -> int:
 # --- plain PyTorch versions -------------------------------------------------
 
 def _sort_tiles_plain(words, riders, tile: int, flip1: bool = False):
-    perm = row_order(words, tile, flip1)
-    return [take_rows(s, perm) for s in (*words, *riders)]
+    return sort_segments(words, riders, tile, flip1)
 
 
 def sort_tiles_plain(keys, tile_rows: int = 128,
@@ -240,16 +239,17 @@ def _schedule(t: int, r: int, s: int, g: int) -> list[Step]:
 
 def tile_plan(nwords: int, tile_log2: int, n: int = 0) -> TilePlan:
     """The launch plan of `cluster_sort` for tiles of 2^tile_log2 rows of
-    `nwords` (1..4) words over n rows (a multiple of the tile; 0: one
-    tile). A tile above a CTA's rows takes a cluster of up to MAX_CLUSTER
-    CTAs; a smaller one shares a CTA with its neighbours as far as n
-    allows."""
+    `nwords` (1..4) words over n rows (0: one tile). A tile above a CTA's
+    rows takes a cluster of up to MAX_CLUSTER CTAs; a smaller one shares a
+    CTA with its neighbours as far as the count of tiles (the short last
+    one included) allows."""
     if nwords not in GEOMETRY:
         raise ValueError(f"cluster_sort sorts 1..4 words, not {nwords}")
     rmax, g, threads = GEOMETRY[nwords]
     if tile_log2 <= rmax:
         cluster = 1
-        low = (n & -n).bit_length() - 1 if n else tile_log2
+        rows = -(-n >> tile_log2) << tile_log2     # whole tiles
+        low = (rows & -rows).bit_length() - 1 if rows else tile_log2
         rows_log2 = min(rmax, max(low, tile_log2))
     else:
         cluster = min(MAX_CLUSTER, 1 << (tile_log2 - rmax))
@@ -312,19 +312,49 @@ def _sort_words(words, riders, tile_log2: int, flip1: bool):
     by the index word. Returns the sorted words (index word dropped) and
     riders."""
     key = words[0]
+    n, tile = key.shape[0], 1 << tile_log2
     which = design(words, tile_log2)
     DESIGN_CALLS[which] += 1
     if which == "merge":
-        stored = False
-        launches = {"bitonic_stage": 0, "cluster_sort": 1}
-    else:
-        plan = tile_plan(len(words), tile_log2, key.shape[0])
-        # the index word reaches device memory only for the stages above
-        # the cluster's span
-        stored = any(s.kind == STAGE for s in plan.steps)
-        launches = plan.launches()
-    # each batch of riders past the first sorts again and keeps only its
-    # riders
+        return _run(words, riders, which, None, flip1, False)
+    plan = tile_plan(len(words), tile_log2, n)
+    # the index word reaches device memory only for the stages above
+    # the cluster's span
+    stored = any(s.kind == STAGE for s in plan.steps)
+    if not stored or n % tile == 0:
+        return _run(words, riders, which, plan, flip1, stored)
+    # device-memory stages keep every row of a tile in device memory: the
+    # whole tiles sort in place, the short last tile through one tile of
+    # scratch whose missing rows hold all-ones words (word 1 all ones after
+    # the flip1 XOR) and the tile's largest indices, so they sort last
+    full = n - n % tile
+
+    def scratch(s, fill):
+        pad = torch.full((tile - (n - full),), fill, dtype=torch.int32,
+                         device=s.device)
+        return torch.cat([s.view(torch.int32)[full:], pad]).view(torch.uint32)
+
+    tail = _run([w if w is None else
+                 scratch(w, 0x7FFFFFFF if i == 1 and flip1 else -1)
+                 for i, w in enumerate(words)],
+                [scratch(r, 0) for r in riders], which, plan, flip1, stored)
+    if not full:
+        return tuple([t[:n] for t in ts] for ts in tail)
+    head = _run([w if w is None else w[:full] for w in words],
+                [r[:full] for r in riders], which, plan, flip1, stored)
+    return tuple([torch.cat([h.view(torch.int32),
+                             t.view(torch.int32)[:n - full]]
+                            ).view(torch.uint32) for h, t in zip(hs, ts)]
+                 for hs, ts in zip(head, tail))
+
+
+def _run(words, riders, which: str, plan, flip1: bool, stored: bool):
+    """One call of the design's kernels over all of `words`' rows: a
+    launch a batch of riders (each batch past the first sorts again and
+    keeps only its riders)."""
+    key = words[0]
+    launches = ({"bitonic_stage": 0, "cluster_sort": 1} if which == "merge"
+                else plan.launches())
     batches = [riders[i:i + MAX_RIDERS]
                for i in range(0, len(riders), MAX_RIDERS)] or [[]]
     out_r = []

@@ -8,19 +8,18 @@ on a CUDA tensor and its plain PyTorch version on a CPU tensor.
 
 Every sort of the port's operators goes through one seam here:
 
-  * `_merge_chain`, the merge engine's one chain: every stream padded
-    with 0xFFFFFFFF sentinels to a power-of-two tile count (so every pass
-    sees whole groups), the tile sort, the merge passes, the slice back
-    to n. The position word it makes, when asked, is an iota whose pad
-    rows sort after the real ones.
+  * `_merge_chain`, the merge engine's one chain over exactly the n rows
+    it is handed: the tile sort (the last tile may be short) and the
+    merge passes (the last run may be short). The position word it
+    makes, when asked, is an iota. Nothing is padded, so no real row can
+    meet a pad row, and the JAX package's sentinel check has nothing to
+    guard.
   * `_sort_rows`, the one engine switch: rows stably sorted by a key and
     its compared words, riders moved along, on "merge" (the chain),
     "xla" (a stable torch.sort of the codes, where the JAX package calls
     `jax.lax.sort`) or "auto" (merge on a CUDA tensor, torch.sort on a
     CPU tensor). It holds the rule for payload widths and the one error
-    for an unknown engine. A caller that supplies the first compared word
-    goes through `merge_sort_multi`'s sentinel check; a sort whose
-    position word the chain makes cannot meet it.
+    for an unknown engine.
 
 The public sorts:
 
@@ -76,8 +75,7 @@ from lsdradixsort_tpu_torch.core.convert import (gather, i64_to_u32,
                                                  iota_u32, stable_order,
                                                  u32_to_i64)
 from lsdradixsort_tpu_torch.core.digits import get_digit, num_digit_groups
-from lsdradixsort_tpu_torch.core.profiling import (COUNTS, annotate,
-                                                   host_value)
+from lsdradixsort_tpu_torch.core.profiling import COUNTS, annotate
 from lsdradixsort_tpu_torch.kernels.histogram import block_digit_histograms
 from lsdradixsort_tpu_torch.kernels.merge import (KWAY, MAX_STREAMS,
                                                   merge_pass_multi)
@@ -89,34 +87,22 @@ from lsdradixsort_tpu_torch.kernels.tile_sort import (LANES, sort_tiles,
 from lsdradixsort_tpu_torch.kernels.transpose import transpose_any
 
 
-def _padded_size(n: int, tile: int) -> int:
-    """Power-of-2 tile count: every pass's run length (tile * 8^k) must
-    divide the padded size."""
-    return tile * (1 << max(0, (-(-n // tile) - 1).bit_length()))
-
-
-def _pad(x: torch.Tensor, npad: int) -> torch.Tensor:
-    """x followed by 0xFFFFFFFF sentinels up to npad rows."""
-    if npad == x.shape[0]:
-        return x
-    fill = torch.full((npad - x.shape[0],), -1, dtype=torch.int32,
-                      device=x.device)
-    return torch.cat([x.view(torch.int32), fill]).view(torch.uint32)
-
-
 def _merge_chain(words, riders=(), tile_log2: int = 15, *,
                  positions: bool = False, tiles: str = "multi"):
     """The merge engine's chain: (n,) uint32 `words` (the key first, then
-    the compared payloads) and `riders` padded to a power-of-two tile
-    count, tile sorted, merged 8 ways until one run covers them, and cut
-    back to n rows. Returns (sorted_key, [the other words, riders]).
+    the compared payloads) and `riders`, contiguous, tile sorted and
+    merged 8 ways until one run covers their n rows. Returns (sorted_key,
+    [the other words, riders]). Any n: the last tile and the last run of
+    each pass may be short, and each kernel keeps the rows that do not
+    exist out of device memory (they would sort after every real row), so
+    no stream is padded and the chain allocates nothing beyond n rows a
+    stream. `COUNTS["ragged_sorts"]` counts the calls whose n is not a
+    power-of-two count of whole tiles.
 
     positions: the row positions follow the words as the last compared
-    word, the unique tiebreak that makes the sort stable. Pad rows carry
-    positions >= n, so among rows equal on every other word the real rows
-    sort first and [:n] keeps exactly them: the sentinel, as every padded
-    stream, except on the kv tile sort, which compares the position as a
-    signed int32 and gets n, n + 1, ... there.
+    word, the unique tiebreak that makes the sort stable. They lie below
+    2^31, so the kv tile sort, which compares the position as a signed
+    int32, orders them as the unsigned merge passes do.
 
     tiles: the tile-sort wrapper, "keys" (`sort_tiles`, one word, no
     riders), "kv" (`sort_tiles_kv`, the key and one compared word) or
@@ -125,13 +111,13 @@ def _merge_chain(words, riders=(), tile_log2: int = 15, *,
     `merge_pass_kv` are."""
     n = words[0].shape[0]
     tile = 1 << tile_log2
-    npad = _padded_size(n, tile)
+    if n < tile or n & (n - 1):
+        COUNTS["ragged_sorts"] += 1
     if positions:
-        words = [*words, iota_u32(npad if tiles == "kv" else n,
-                                  words[0].device)]
+        words = [*words, iota_u32(n, words[0].device)]
     ncmp = len(words)
     with annotate("lsd.merge_sort"):
-        x, *vs = [_pad(s, npad) for s in (*words, *riders)]
+        x, *vs = [s.contiguous() for s in (*words, *riders)]
         if tiles == "keys":
             x = sort_tiles(x, tile_rows=tile // LANES)
         elif tiles == "kv":
@@ -141,10 +127,10 @@ def _merge_chain(words, riders=(), tile_log2: int = 15, *,
             x, vs = sort_tiles_multi(x, vs, tile_rows=tile // LANES,
                                      ncmp=ncmp)
         run = tile
-        while run < npad:
+        while run < n:
             x, vs = merge_pass_multi(x, vs, run, ncmp)
             run *= KWAY
-        return x[:n], [v[:n] for v in vs]
+        return x, vs
 
 
 def merge_sort_keys(keys: torch.Tensor, tile_log2: int = 15,
@@ -174,21 +160,12 @@ def merge_sort_multi(keys: torch.Tensor, values, tile_log2: int = 15,
                      max_buf: int | None = None, blk: int | None = None,
                      ce: str = "reshape", pipeline="full"):
     """Framework sort of (keys, values[0]) lexicographic with any number of
-    payload streams riding. values: list of (n,) uint32; returns
-    (sorted_keys, [payloads...]).
-
-    Padding rows are (key, val0) = (0xFFFFFFFF, 0xFFFFFFFF), which sort
-    last. With >= 2 payloads a real row equal to that pair could trade its
-    riding payloads with padding, so that case takes an exact stable sort
-    by (key, val0, position) instead, as in the JAX package."""
+    payload streams riding, stable: rows equal on (key, values[0]) keep
+    their input order, riders included (the JAX package pads with
+    (0xFFFFFFFF, 0xFFFFFFFF) rows and sorts a real row equal to that pair
+    exactly by another path; the chain pads nothing). values: list of
+    (n,) uint32; returns (sorted_keys, [payloads...])."""
     values = list(values)
-    npad = _padded_size(keys.shape[0], 1 << tile_log2)
-    if npad != keys.shape[0] and len(values) >= 2:
-        collide = ((keys.view(torch.int32) == -1)
-                   & (values[0].view(torch.int32) == -1)).any()
-        if host_value(collide):
-            sk, by, rest = _sort_rows(keys, values[:1], values[1:], "xla")
-            return sk, [*by, *rest]
     return _merge_chain([keys, *values[:1]], values[1:], tile_log2)
 
 
@@ -218,7 +195,7 @@ def _sort_rows(key: torch.Tensor, by=(), riders=(), engine: str = "merge",
     the chain make the position word, its unique tiebreak, compared last;
     riders past what one pass moves follow it by a gather. Otherwise by
     is one word, the caller's unique tiebreak, and the sort goes through
-    `merge_sort_multi` and its sentinel check. "xla" compares key and by
+    `merge_sort_multi`. "xla" compares key and by
     with `stable_order` (key alone when `key_only`: the caller's by word
     ascends in row order, so stability gives its order, or the caller
     needs no order among equal keys) and gathers the rest; keys alone
@@ -403,8 +380,8 @@ def sort_blocks_kv(keys: torch.Tensor, values: torch.Tensor,
     kernel (the reference's block-local sort, TestLSDBinaryRadixSort,
     cu:423-477). The value breaks key ties as a signed int32, as in
     `sort_tiles_kv`: unique values below 2^31 (row ids) make it a stable
-    key sort. block_size: a power-of-two multiple of 128; n a multiple of
-    block_size."""
+    key sort. block_size: a power-of-two multiple of 128; the last block
+    may be short."""
     return sort_tiles_kv(keys, values, tile_rows=block_size // LANES)
 
 

@@ -127,7 +127,11 @@ def test_merge_pass_wrappers_and_counters():
 def test_merge_pass_invalid_inputs_raise():
     k = torch.zeros(3 * L, dtype=torch.int32).view(torch.uint32)
     with pytest.raises(ValueError):
-        T.merge_pass(k, 2 * L)                         # n % run_len != 0
+        T.merge_pass(k, 0)                             # no run length
+    # n % run_len != 0 merges a group whose last run is short
+    x = np.concatenate([np.arange(2 * L), np.arange(L)]).astype(np.uint32)
+    np.testing.assert_array_equal(to_numpy(T.merge_pass(from_numpy(x), 2 * L)),
+                                  np.sort(x))
     with pytest.raises(ValueError):
         T.merge_pass_multi(k, [k] * 8, L)              # too many streams
     with pytest.raises(ValueError):

@@ -39,8 +39,8 @@ def _case(kind, run_len, nruns, ncmp, seed):
     hi = {"all_equal": 1, "few": 3, "uniform": 2**32, "padded": 2**32}[kind]
     cols = [rng.integers(0, hi, n, dtype=np.uint64).astype(np.uint32)
             for _ in range(ncmp)]
-    if kind == "padded":           # merge_sort's 0xFFFFFFFF tail: the
-        for c in cols:             # last group's runs all padding
+    if kind == "padded":           # a tail of all-ones rows: the last
+        for c in cols:             # group's runs all 0xFFFFFFFF
             c[(nruns - nruns % M.KWAY or nruns - M.KWAY) * run_len:] = (
                 0xFFFFFFFF)
     for r in range(nruns):

@@ -163,9 +163,11 @@ def test_cpu_wrappers_run_plain_versions_only():
 
 
 def test_invalid_inputs_raise():
-    k = torch.zeros(1000, dtype=torch.int32).view(torch.uint32)
-    with pytest.raises(ValueError):
-        T.sort_tiles(k, tile_rows=8)                 # n % tile != 0
+    # n % tile != 0 sorts every whole tile and the short last one
+    x = np.arange(1000, dtype=np.uint32)[::-1].copy()
+    got = to_numpy(T.sort_tiles(from_numpy(x), tile_rows=4))
+    np.testing.assert_array_equal(got[:512], np.sort(x[:512]))
+    np.testing.assert_array_equal(got[512:], np.sort(x[512:]))
     k = torch.zeros(1024, dtype=torch.int32).view(torch.uint32)
     with pytest.raises(ValueError):
         T.sort_tiles(k, tile_rows=3)                 # not a power of 2
@@ -660,3 +662,119 @@ def test_design_calls_count_each_path(monkeypatch, what, ncompared,
         assert launched == {k: v * batches
                             for k, v in plan.launches().items()}
     assert len(out_w) == ncompared and len(out_r) == nriders
+
+
+# --- a short last tile ------------------------------------------------------
+#
+# Any n: the kernels keep the last tile's missing rows (n and after) out of
+# device memory and sort them, inside the CTA or cluster, as all-ones
+# compared words with their own in-tile indices, the tile's largest, so
+# that they land after every row that exists. The models below run each
+# design's steps over such a tile and hold its first rows against the
+# plain version on the n rows alone.
+
+def _ragged_tile(kind, m, tile, rng):
+    """m < tile rows of (key, payload 0): few values, or every row all
+    ones (the missing rows' words), with two riders."""
+    if kind == "ones":
+        keys = np.full(m, 0xFFFFFFFF, np.uint32)
+        vals = keys.copy()
+        vals[::3] = 0xFFFFFFFE
+    else:
+        keys, vals = _merge_data(kind, m, rng)
+    riders = [rng.integers(0, 1 << 32, m, dtype=np.uint64).astype(np.uint32)
+              for _ in range(2)]
+    return keys, vals, riders
+
+
+@pytest.mark.parametrize("geometry", [(2, 5, 4), (3, 6, 2), (4, 8, 4)])
+@pytest.mark.parametrize("kind", ["q1", "ones", "reversed"])
+def test_merge_model_short_last_tile(kind, geometry):
+    rng = np.random.default_rng(33)
+    tile = geometry[2] << geometry[1]
+    for m in (1, tile // 2 - 1, tile // 2 + 1, tile - 1):
+        keys, vals, riders = _ragged_tile(kind, m, tile, rng)
+        pad = tile - m
+        ones = np.full(pad, 0xFFFFFFFF, np.uint32)
+        got_k, got_v, got_r = _model_merge_tile(
+            np.r_[keys, ones], np.r_[vals, ones],
+            [np.r_[r, np.zeros(pad, np.uint32)] for r in riders], *geometry)
+        wk, wv = T.sort_tiles_multi_plain(
+            from_numpy(keys), [from_numpy(vals)]
+            + [from_numpy(r) for r in riders], tile // T.LANES)
+        np.testing.assert_array_equal(got_k[:m], to_numpy(wk))
+        for g_, w_ in zip([got_v, *got_r], wv):
+            np.testing.assert_array_equal(g_[:m], to_numpy(w_))
+
+
+@pytest.mark.parametrize("nwords,tile_log2", [(1, 9), (2, 8), (3, 16),
+                                              (4, 10), (2, 15)])
+def test_tile_plan_short_last_tile(nwords, tile_log2):
+    # the plan over n rows that end inside a tile covers whole tiles and
+    # whole spans (what the kernel checks), and its steps, run over the
+    # rows with the missing ones as the largest words (the index word,
+    # when last, their own), sort the rows that exist
+    t = tile_log2
+    tile = 1 << t
+    rng = np.random.default_rng(t + nwords)
+    for n in (5, 3 * tile + 17, (8 << max(0, 15 - t)) * tile - 1):
+        plan = T.tile_plan(nwords, t, n)
+        rows = -(-n // tile) * tile
+        assert rows % (1 << plan.span_log2) == 0
+        for index_last in (False, True):
+            words = [rng.integers(0, 8, rows, dtype=np.uint32)
+                     for _ in range(nwords - 1)]
+            last = (np.arange(rows) % tile if index_last else
+                    rng.integers(0, 1 << 32, rows, dtype=np.uint64))
+            words.append(last.astype(np.uint32))
+            for w in words[:-1]:
+                w[n:] = 7
+            if not index_last:
+                words[-1][n:] = 0xFFFFFFFF
+            got, _ = _replay(plan, _packed(words))
+            keys = _packed(words)
+            for lo in range(0, n, tile):
+                hi = min(lo + tile, n)
+                np.testing.assert_array_equal(got[lo:hi],
+                                              np.sort(keys[lo:hi]))
+
+
+def _fake_network(words, dst, riders, outs, plan, flip1):
+    """The network kernel's contract on CPU tensors: every tile of n rows
+    (whole tiles: device-memory stages take no other) sorted by its words
+    (a None word the in-tile index), the riders gathered along."""
+    n, tile = words[0].shape[0], 1 << plan.tile_log2
+    assert n % tile == 0
+    index = (torch.arange(n, dtype=torch.int32) % tile).view(torch.uint32)
+    out = T._sort_tiles_plain([index if w is None else w for w in words],
+                              riders, tile, flip1)
+    for d, o in zip([*dst, *outs], out):
+        if d is not None:
+            d.copy_(o)
+
+
+@pytest.mark.parametrize("what", ["keys", "kv", "multi, riders"])
+@pytest.mark.parametrize("n", [5, (1 << 18) + 5, (2 << 18) - 3])
+def test_staged_plans_sort_a_short_last_tile_through_scratch(monkeypatch,
+                                                             what, n):
+    # a tile above a cluster's span (device-memory stages): the whole tiles
+    # sort in place, the short last one through a tile of scratch
+    monkeypatch.setattr(T, "_launch_network", _fake_network)
+    rng = np.random.default_rng(n)
+    col = [from_numpy(rng.integers(0, 5, n, dtype=np.uint32)),
+           from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64)
+                      .astype(np.uint32))]
+    col[0][:7] = 0xFFFFFFFF
+    col[1][:3] = 0x7FFFFFFF
+    words, riders, flip1 = {
+        "keys": ([col[0]], [], False),
+        "kv": (col, [], True),
+        "multi, riders": ([col[0], None], col, False)}[what]
+    t = 18
+    assert T.tile_plan(len(words), t, n).launches()["bitonic_stage"] > 0
+    out_w, out_r = T._sort_words(words, riders, t, flip1)
+    want = T._sort_tiles_plain(
+        [w for w in words if w is not None], riders, 1 << t, flip1)
+    assert [o.shape[0] for o in (*out_w, *out_r)] == [n] * len(want)
+    for g, w in zip([*out_w, *out_r], want, strict=True):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))

@@ -28,7 +28,7 @@ def _records(n, seed):
 
 CALLS = {
     "sort": lambda: lsd.sort(_u32(N, 1 << 31, 1), strategy="merge"),
-    # 4000 rows pad to a tile: the sentinel check reads one value
+    # 4000 rows, a short tile: no padding, so no sentinel check to read
     "join": lambda: lsd.hash_join(_u32(1000, 5000, 2), _u32(1000, 1 << 31, 3),
                                   _u32(3000, 5000, 4), _u32(3000, 1 << 31, 5),
                                   engine="merge"),
@@ -42,7 +42,7 @@ CALLS = {
 # (depth, span) in the order the spans open
 TREES = {
     "sort": [(0, "lsd.sort"), (1, "lsd.merge_sort")],
-    "join": [(0, "lsd.hash_join"), (1, "lsd.join.tag"), (1, "lsd.host_sync"),
+    "join": [(0, "lsd.hash_join"), (1, "lsd.join.tag"),
              (1, "lsd.merge_sort"), (1, "lsd.join.match"),
              (1, "lsd.join.probe_order"), (1, "lsd.join.gather")],
     "agg": [(0, "lsd.filtered_group_by_sum"), (1, "lsd.agg.mask"),
@@ -118,8 +118,16 @@ def test_outputs_are_the_same_with_the_profiler_on_and_off(call):
 
 def test_host_syncs_count_the_values_read():
     assert _counted(CALLS["sort"])["host_syncs"] == 0
-    assert _counted(CALLS["join"])["host_syncs"] == 1
-    assert _counted(CALLS["agg"])["host_syncs"] == 0   # no padding at N
+    assert _counted(CALLS["join"])["host_syncs"] == 0   # no sentinel check
+    assert _counted(CALLS["agg"])["host_syncs"] == 0
+
+
+@pytest.mark.parametrize("call,want", [("sort", 0), ("agg", 0), ("join", 1),
+                                       ("records", 3)])
+def test_ragged_sorts_count_the_sorts_of_a_short_tile(call, want):
+    # N = 2^15 rows are one whole tile; the join's 4000 rows and each of
+    # the records' three key-word sorts of 3000 rows are not
+    assert _counted(CALLS[call])["ragged_sorts"] == want
 
 
 def test_record_bytes_count_the_rows_gathered():
